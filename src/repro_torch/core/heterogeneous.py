@@ -1,0 +1,212 @@
+"""Heterogeneous dispatch — the "ITA or cluster" decision, per operator (torch port).
+
+Each operator runs either on the accelerator (GEMM / MHA, when shapes
+satisfy the geometric constraints) or on the cluster's fallback kernels.
+Here the accelerator slot of ``Backend.ITA`` holds the CUDA kernels
+(``int8_gemm``, ``ita_attention``), the accelerator slot of
+``Backend.W8A8`` the paper-faithful plain integer arithmetic, and the
+cluster the plain PyTorch integer operators.
+
+``DEFAULT_TABLE`` holds the encoder's kinds: gemm, mha, layernorm, add,
+embed, classifier and dequant.  A plan node of any other kind fails at
+bind time.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Callable
+
+
+class Backend(enum.Enum):
+    W8A8 = "w8a8"  # plain integer path (paper-faithful arithmetic)
+    ITA = "ita"  # hand-written CUDA kernels in the accelerator slot
+
+
+class Engine(enum.Enum):
+    ACCELERATOR = "ita"
+    CLUSTER = "cluster"
+
+
+# ITA geometric constraints (Section IV-B): vector length 64, 64-granule
+# tiles.  The kernel backend aligns to 128, as the reference's TPU kernels
+# did, so that plans, tilings and paddings are the reference's.
+ITA_GRANULE = 64
+TPU_GRANULE = 128
+
+PALLAS_GRANULE = TPU_GRANULE
+ASIC_GRANULE = ITA_GRANULE
+
+
+@dataclasses.dataclass(frozen=True)
+class OpDesc:
+    """Shape/type description of one operator instance."""
+
+    kind: str
+    shapes: tuple[tuple[int, ...], ...]
+    dtype: str = "int8"
+    act: str = "identity"
+
+
+#: ops the accelerator datapath supports at all
+ACCEL_KINDS = {"gemm", "mha", "relu", "gelu", "identity"}
+
+
+def backend_granule(backend: "Backend") -> int:
+    """Alignment granule at which ``resolve`` judges ``ita_supports``."""
+    return PALLAS_GRANULE if backend is Backend.ITA else ASIC_GRANULE
+
+
+def as_backend(backend: "Backend | str") -> "Backend":
+    """Normalize a backend given as enum or name string."""
+    if isinstance(backend, Backend):
+        return backend
+    if isinstance(backend, str):
+        try:
+            return Backend(backend.lower())
+        except ValueError:
+            raise ValueError(
+                f"unknown backend {backend!r}; expected one of "
+                f"{sorted(b.value for b in Backend)}"
+            ) from None
+    raise TypeError(f"backend must be a Backend or name string, got {type(backend)!r}")
+
+
+def ita_supports(op: OpDesc, granule: int = ITA_GRANULE) -> bool:
+    """Would the accelerator accept this op?  int8 operands, aligned dims;
+    MHA is gated by the head dim alone (the runner pads the sequence)."""
+    if op.kind not in ACCEL_KINDS:
+        return False
+    if op.dtype != "int8":
+        return False
+    if op.kind == "mha":
+        return all(s[-1] % ITA_GRANULE == 0 for s in op.shapes)
+    for shape in op.shapes:
+        for d in shape[-2:]:
+            if d % granule != 0:
+                return False
+    return True
+
+
+@dataclasses.dataclass
+class DispatchTable:
+    """Runtime registry: op kind -> {engine -> callable}, plus per-backend
+    overrides of an engine slot."""
+
+    table: dict[str, dict[Engine, Callable]] = dataclasses.field(default_factory=dict)
+    overrides: dict[tuple[str, Engine, Backend], Callable] = dataclasses.field(
+        default_factory=dict
+    )
+
+    def register(
+        self, kind: str, engine: Engine, fn: Callable, backend: Backend | None = None
+    ) -> None:
+        if backend is None:
+            self.table.setdefault(kind, {})[engine] = fn
+        else:
+            self.table.setdefault(kind, {})
+            self.overrides[(kind, engine, backend)] = fn
+
+    def _lookup(self, kind: str, engine: Engine, backend: Backend) -> Callable:
+        fn = self.overrides.get((kind, engine, backend))
+        if fn is None:
+            fn = self.table[kind][engine]
+        return fn
+
+    def _has_accelerator(self, kind: str, backend: Backend) -> bool:
+        return Engine.ACCELERATOR in self.table.get(kind, {}) or (
+            (kind, Engine.ACCELERATOR, backend) in self.overrides
+        )
+
+    def resolve(self, op: OpDesc, backend: Backend) -> tuple[Engine, Callable]:
+        if op.kind not in self.table:
+            raise NotImplementedError(f"no runner registered for op kind {op.kind!r}")
+        granule = backend_granule(backend)
+        if ita_supports(op, granule) and self._has_accelerator(op.kind, backend):
+            return Engine.ACCELERATOR, self._lookup(op.kind, Engine.ACCELERATOR, backend)
+        return Engine.CLUSTER, self._lookup(op.kind, Engine.CLUSTER, backend)
+
+
+DEFAULT_TABLE = DispatchTable()
+
+
+def populate_default_table(table: DispatchTable | None = None) -> DispatchTable:
+    """Fill a dispatch table with the encoder's runners.
+
+    One signature per kind (the executor prepares arguments once):
+
+      gemm:       fn(x, w, b, *, scales, act, s_preact) -> int8
+      mha:        fn(qh, kh, vh, *, s_act, s_out) -> int8  [B, H, S, D]
+      layernorm:  fn(kind, pq, x_q, s_gamma, s_out) -> int8
+      add:        fn(a_q, b_q, *, scales) -> int8
+      embed:      fn(table_q, tokens) -> int8
+      classifier: fn(h_q, table_q, *, scale) -> float32
+      dequant:    fn(h_q, *, scale) -> float32
+    """
+    table = DEFAULT_TABLE if table is None else table
+
+    import torch
+
+    from repro_torch.core.attention import MhaQParams, attention_rowwise_i8
+    from repro_torch.core.quant_linear import ACT_IDENTITY, make_qlinear_params, qlinear_i8
+    from repro_torch.kernels.int8_gemm import int8_gemm
+    from repro_torch.models import layers as L
+    from repro_torch.models.encoder import attention_ita
+
+    # -- gemm: ITA's GEMM mode (int8 matmul + bias + requant + activation)
+    def _gemm_plain(x_q, w_q, b_q, *, scales, act=ACT_IDENTITY, s_preact=None):
+        s_in, s_w, s_out = scales
+        return qlinear_i8(x_q, w_q, b_q, make_qlinear_params(s_in, s_w, s_out, act, s_preact))
+
+    def _gemm_ita(x_q, w_q, b_q, *, scales, act=ACT_IDENTITY, s_preact=None):
+        s_in, s_w, s_out = scales
+        *lead, k = x_q.shape
+        m = 1
+        for d in lead:
+            m *= d
+        n = w_q.shape[1]
+        # rows padded to the 128 granule with zero rows, as the reference's
+        # runner does (exact: they are sliced away after the requant)
+        pad = (-m) % TPU_GRANULE
+        x2 = x_q.reshape(m, k)
+        if pad:
+            x2 = torch.cat([x2, torch.zeros((pad, k), dtype=x_q.dtype, device=x_q.device)])
+        out = int8_gemm(x2, w_q, b_q, s_in=s_in, s_w=s_w, s_out=s_out, act=act,
+                        s_preact=s_preact)
+        if pad:
+            out = out[:m]
+        return out.reshape(*lead, n)
+
+    table.register("gemm", Engine.CLUSTER, _gemm_plain)
+    table.register("gemm", Engine.ACCELERATOR, _gemm_plain, backend=Backend.W8A8)
+    table.register("gemm", Engine.ACCELERATOR, _gemm_ita, backend=Backend.ITA)
+
+    # -- mha: the fused attention core (projections dispatch as gemm)
+    def _mha_plain(qh, kh, vh, *, s_act, s_out):
+        p = MhaQParams.make(s_act, s_act, s_act, s_out, qh.shape[-1])
+        return attention_rowwise_i8(qh, kh, vh, p)
+
+    def _mha_ita(qh, kh, vh, *, s_act, s_out):
+        return attention_ita(qh, kh, vh, s_act, s_out)
+
+    table.register("mha", Engine.CLUSTER, _mha_plain)
+    table.register("mha", Engine.ACCELERATOR, _mha_plain, backend=Backend.W8A8)
+    table.register("mha", Engine.ACCELERATOR, _mha_ita, backend=Backend.ITA)
+
+    # -- cluster-only auxiliaries (the paper's Snitch fallback kernels)
+    table.register("layernorm", Engine.CLUSTER, L.norm_apply_i8)
+
+    def _iadd(a_q, b_q, *, scales):
+        return L.iadd_i8(a_q, b_q, *L.make_iadd_params(*scales))
+
+    table.register("add", Engine.CLUSTER, _iadd)
+    table.register("embed", Engine.CLUSTER, lambda table_q, tokens: table_q[tokens.long()])
+    table.register("classifier", Engine.CLUSTER,
+                   lambda h_q, table_q, *, scale: L.classifier_f32(h_q, table_q, scale))
+    table.register("dequant", Engine.CLUSTER,
+                   lambda h_q, *, scale: h_q.to(torch.float32) * scale)
+    return table
+
+
+populate_default_table(DEFAULT_TABLE)

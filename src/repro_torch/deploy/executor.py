@@ -1,0 +1,351 @@
+"""Plan executor — runs a DeploymentPlan with PyTorch (port).
+
+Every scheduled node resolves through the runtime
+:class:`~repro_torch.core.heterogeneous.DispatchTable`: accelerator nodes
+hit the CUDA kernels (``Backend.ITA``) or the paper-faithful plain
+integer arithmetic (``Backend.W8A8``), cluster nodes the plain integer
+operators — as ``ita_supports`` decides.
+
+Contract: ``execute(plan, bind_encoder_weights(...), batch, backend=b)``
+equals the JAX package's ``execute`` on the same ints, element for
+element, on both backends.  PyTorch runs eagerly: the bound program is a
+tuple of closures walked in schedule order.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.heterogeneous import (
+    DEFAULT_TABLE,
+    Backend,
+    DispatchTable,
+    OpDesc,
+    as_backend,
+    backend_granule,
+)
+from repro_torch.core.quant_linear import ACT_GELU, ACT_IDENTITY, ACT_RELU
+from repro_torch.deploy.plan import DeploymentPlan, PlanNode
+
+#: fused-activation vocabulary the GEMM runner can lower
+_GEMM_ACTS = {"identity": ACT_IDENTITY, "relu": ACT_RELU, "gelu": ACT_GELU}
+
+
+def _ceil_to(d: int, g: int) -> int:
+    return math.ceil(d / g) * g
+
+
+def _gemm_desc(
+    m: int, k: int, n: int, granule: int, act: str = "identity", pad_m: bool = True
+) -> OpDesc:
+    mm = _ceil_to(m, granule) if pad_m else m
+    return OpDesc("gemm", shapes=((mm, k), (k, n)), act=act)
+
+
+def _mha_desc(seq: int, head_dim: int, granule: int) -> OpDesc:
+    return OpDesc("mha", shapes=((_ceil_to(seq, granule), head_dim),))
+
+
+def _resolve(table: DispatchTable, desc: OpDesc, backend: Backend) -> Callable:
+    return table.resolve(desc, backend)[1]
+
+
+# ---------------------------------------------------------------------------
+# Per-kind node compilers: each node is bound once per (plan, backend,
+# table) into a ``run(env) -> out`` closure.
+# ---------------------------------------------------------------------------
+
+
+def _compile_gemm(node: PlanNode, table, backend) -> Callable:
+    if "heads" in node.attrs:
+        raise NotImplementedError(
+            f"{node.name}: un-fused attention MatMul cannot execute; lower with "
+            "fuse_mha (deploy_pipeline) so attention runs as an MHA node"
+        )
+    a = node.attrs
+    m, k, n = a["dims"]
+    act_name = a.get("activation", "identity")
+    if act_name not in _GEMM_ACTS:
+        raise NotImplementedError(
+            f"{node.name}: no GEMM lowering for fused activation {act_name!r} "
+            f"(supported: {sorted(_GEMM_ACTS)})"
+        )
+    act = _GEMM_ACTS[act_name]
+    scales = tuple(a["scales"])
+    s_preact = a.get("s_preact")
+    if act == ACT_GELU and s_preact is None:
+        s_preact = scales[2]
+    g = backend_granule(backend)
+    fn = _resolve(table, _gemm_desc(m, k, n, g, act_name, pad_m=a.get("pad_m", True)), backend)
+    x_t, w_t = node.inputs[0], node.inputs[1]
+    b_t = node.inputs[2] if len(node.inputs) > 2 else None
+
+    def run(env):
+        b = env[b_t] if b_t is not None else None
+        return fn(env[x_t], env[w_t], b, scales=scales, act=act, s_preact=s_preact)
+
+    return run
+
+
+def _split(x, heads, head_dim):
+    b, s, _ = x.shape
+    return x.reshape(b, s, heads, head_dim).permute(0, 2, 1, 3)
+
+
+def _mha_weights(node: PlanNode, env):
+    wq, wk, wv, wo = (env[t] for t in node.inputs[1:5])
+    if node.attrs.get("has_bias"):
+        bq, bk, bv, bo = (env[t] for t in node.inputs[5:9])
+    else:
+        bq = bk = bv = bo = None
+    return wq, wk, wv, wo, bq, bk, bv, bo
+
+
+def _compile_mha(node: PlanNode, table, backend) -> Callable:
+    """Fused MHA: QKV projections -> attention core -> output projection."""
+    a = node.attrs
+    s, e = a["seq"], a["d_model"]
+    h, hkv, hd = a["heads"], a["kv_heads"], a["head_dim"]
+    proj = tuple(a["proj_scales"])
+    outp = tuple(a["out_scales"])
+    g = backend_granule(backend)
+
+    gemm_q = _resolve(table, _gemm_desc(s, e, h * hd, g), backend)
+    gemm_kv = _resolve(table, _gemm_desc(s, e, hkv * hd, g), backend)
+    attn = _resolve(table, _mha_desc(s, hd, g), backend)
+    gemm_o = _resolve(table, _gemm_desc(s, h * hd, e, g), backend)
+
+    def run(env):
+        x = env[node.inputs[0]]
+        wq, wk, wv, wo, bq, bk, bv, bo = _mha_weights(node, env)
+        q = gemm_q(x, wq, bq, scales=proj, act=ACT_IDENTITY, s_preact=None)
+        k = gemm_kv(x, wk, bk, scales=proj, act=ACT_IDENTITY, s_preact=None)
+        v = gemm_kv(x, wv, bv, scales=proj, act=ACT_IDENTITY, s_preact=None)
+        at = attn(_split(q, h, hd), _split(k, hkv, hd), _split(v, hkv, hd),
+                  s_act=proj[2], s_out=outp[0])
+        a_m = at.permute(0, 2, 1, 3).reshape(*x.shape[:2], h * hd)
+        return gemm_o(a_m, wo, bo, scales=outp, act=ACT_IDENTITY, s_preact=None)
+
+    return run
+
+
+def _compile_cluster(node: PlanNode, table, backend) -> Callable:
+    """Bind one cluster-engine node of the encoder's kinds."""
+    kind = node.kind
+    a = node.attrs
+    fn = _resolve(table, OpDesc(kind, shapes=(tuple(a.get("dims", ())),)), backend)
+    ins = node.inputs
+    if kind == "layernorm":
+        norm, s_gamma, s_out = a["norm"], a["s_gamma"], a["s_out"]
+        params = list(ins[1:])
+        g_t = params[0] if norm != "np_layernorm" and params else None
+        b_t = params[1] if norm == "layernorm" and len(params) > 1 else None
+
+        def run(env):
+            pq = {}
+            if g_t is not None:
+                pq["g_q"] = env[g_t]
+            if b_t is not None:
+                pq["beta_q"] = env[b_t]
+            return fn(norm, pq, env[ins[0]], s_gamma, s_out)
+
+        return run
+    if kind == "add":
+        scales = tuple(a["scales"])
+        return lambda env: fn(env[ins[0]], env[ins[1]], scales=scales)
+    if kind == "embed":
+        return lambda env: fn(env[ins[0]], env[ins[1]])
+    if kind == "classifier":
+        scale = a["scale"]
+        return lambda env: fn(env[ins[0]], env[ins[1]], scale=scale)
+    if kind == "dequant":
+        scale = a["scale"]
+        return lambda env: fn(env[ins[0]], scale=scale)
+    raise NotImplementedError(f"no runner for op kind {kind!r} ({node.op})")
+
+
+def _compile_node(node: PlanNode, table, backend) -> Callable:
+    if node.fused:
+        raise NotImplementedError(f"{node.name}: fused regions are not ported yet")
+    if node.kind == "gemm":
+        return _compile_gemm(node, table, backend)
+    if node.kind == "mha":
+        if node.op == "MHAHead":
+            raise NotImplementedError(f"{node.name}: the head-by-head schedule is not ported yet")
+        return _compile_mha(node, table, backend)
+    return _compile_cluster(node, table, backend)
+
+
+# ---------------------------------------------------------------------------
+# Public API
+# ---------------------------------------------------------------------------
+
+
+def bind_plan(
+    plan: DeploymentPlan,
+    *,
+    backend: Backend | str = Backend.W8A8,
+    table: DispatchTable | None = None,
+) -> tuple:
+    """Resolve every scheduled node to its runner once, cached on the plan
+    keyed by ``(backend, id(table))`` (the table is retained with it)."""
+    backend = as_backend(backend)
+    table = DEFAULT_TABLE if table is None else table
+    cache = plan.__dict__.setdefault("_bound_programs", {})
+    key = (backend, id(table))
+    hit = cache.get(key)
+    if hit is not None:
+        return hit[1]
+    program = tuple((n, _compile_node(n, table, backend)) for n in plan.nodes)
+    cache[key] = (table, program)
+    return program
+
+
+def execute(
+    plan: DeploymentPlan,
+    weights: dict,
+    batch: dict,
+    *,
+    backend: Backend | str = Backend.W8A8,
+    table: DispatchTable | None = None,
+):
+    """Run one forward pass of the plan.
+
+    ``batch`` maps the plan's input names (``tokens`` / ``patches`` /
+    ``frames``) to tensors with a leading batch dim.
+    """
+    program = bind_plan(plan, backend=backend, table=table)
+    check_bindings(plan, batch=batch)
+    env = dict(weights)
+    for name in plan.inputs:
+        env[name] = batch[name]
+    for node, run in program:
+        env[node.outputs[0]] = run(env)
+    outs = [env[name] for name in plan.outputs]
+    return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+def _weight_binder(weights: dict):
+    """(put, put_norm) closures writing non-None params into ``weights``."""
+
+    def put(name, arr):
+        if arr is not None:
+            weights[name] = arr
+
+    def put_norm(prefix, pq):
+        put(prefix + "_g", pq.get("g_q"))
+        put(prefix + "_b", pq.get("beta_q"))
+
+    return put, put_norm
+
+
+def _bind_attn_layer(put, put_norm, pre: str, cfg: ArchConfig, lp: dict) -> None:
+    """Per-layer attention/norm binding: the fused ``wqkv`` weight (and
+    bias) is column-sliced into the plan's wq/wk/wv tensors — the same
+    ints as one fused GEMM, since integer accumulation is column-separable."""
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    qd, kd = h * hd, hkv * hd
+    wqkv, bqkv = lp["attn"]["wqkv"]["w_q"], lp["attn"]["wqkv"].get("b_q")
+    put(pre + "wq", wqkv[:, :qd].contiguous())
+    put(pre + "wk", wqkv[:, qd : qd + kd].contiguous())
+    put(pre + "wv", wqkv[:, qd + kd : qd + 2 * kd].contiguous())
+    if bqkv is not None:
+        put(pre + "wq_b", bqkv[:qd])
+        put(pre + "wk_b", bqkv[qd : qd + kd])
+        put(pre + "wv_b", bqkv[qd + kd : qd + 2 * kd])
+    put(pre + "wo", lp["attn"]["wo"]["w_q"])
+    put(pre + "wo_b", lp["attn"]["wo"].get("b_q"))
+    put_norm(pre + "norm1", lp["norm1"])
+    put_norm(pre + "norm2", lp["norm2"])
+
+
+class PlanBindingError(ValueError):
+    """Bound tensors contradict the plan's static ``TensorSpec`` contract;
+    every mismatch is listed."""
+
+    def __init__(self, mismatches: list[str], *, what: str = "binding"):
+        self.mismatches = list(mismatches)
+        lines = "; ".join(self.mismatches)
+        super().__init__(
+            f"plan {what} rejects {len(self.mismatches)} tensor(s): {lines}"
+        )
+
+
+#: spec dtype -> tensor dtypes accepted for it
+_BIND_DTYPES = {
+    "int8": {"int8"},
+    "int32": {"int32", "bool"},
+    "float32": {"float32"},
+}
+
+
+def _dtype_name(arr) -> str:
+    dt = getattr(arr, "dtype", None)
+    return type(arr).__name__ if dt is None else str(dt).removeprefix("torch.")
+
+
+def _spec_mismatch(spec, arr, *, batched: bool) -> str | None:
+    """One mismatch line, or None if ``arr`` satisfies ``spec`` (a batched
+    spec also accepts one leading batch dimension)."""
+    shape = tuple(getattr(arr, "shape", ()))
+    ok_shape = shape == spec.shape or (batched and shape[1:] == spec.shape)
+    dt = _dtype_name(arr)
+    ok_dtype = dt in _BIND_DTYPES.get(spec.dtype, {spec.dtype})
+    if ok_shape and ok_dtype:
+        return None
+    return f"{spec.name}: spec {spec.dtype}{list(spec.shape)} vs bound {dt}{list(shape)}"
+
+
+def check_bindings(
+    plan: DeploymentPlan,
+    *,
+    weights: dict | None = None,
+    batch: dict | None = None,
+) -> None:
+    """Pre-flight every provided binding against the plan's ``TensorSpec``s;
+    all violations raise together as one :class:`PlanBindingError`."""
+    bad: list[str] = []
+    what = "binding"
+    if weights is not None:
+        for name in plan.weight_names:
+            if name not in weights:
+                bad.append(f"{name}: declared plan weight never bound")
+                continue
+            m = _spec_mismatch(plan.tensors[name], weights[name], batched=False)
+            if m:
+                bad.append(m)
+        what = "weight binding"
+    if batch is not None:
+        for name in plan.inputs:
+            if name not in batch:
+                bad.append(f"{name}: plan input missing from the batch")
+                continue
+            m = _spec_mismatch(plan.tensors[name], batch[name], batched=True)
+            if m:
+                bad.append(m)
+        what = "input binding"
+    if bad:
+        raise PlanBindingError(bad, what=what)
+
+
+def bind_encoder_weights(plan: DeploymentPlan, cfg: ArchConfig, qp: dict) -> dict:
+    """Map plan weight names onto the quantized params (``qp["layers"]`` is
+    a list of per-layer dicts, as ``encoder.quantize_params`` returns)."""
+    weights: dict = {}
+    put, put_norm = _weight_binder(weights)
+    for l, lp in enumerate(qp["layers"]):
+        pre = f"l{l}_"
+        _bind_attn_layer(put, put_norm, pre, cfg, lp)
+        put(pre + "up", lp["mlp"]["up"]["w_q"])
+        put(pre + "up_b", lp["mlp"]["up"].get("b_q"))
+        put(pre + "down", lp["mlp"]["down"]["w_q"])
+        put(pre + "down_b", lp["mlp"]["down"].get("b_q"))
+    put("pos", qp["pos_q"][: plan.seq_len])
+    put_norm("final_norm", qp["final_norm"])
+    if "embed" in qp:
+        put("embed_table", qp["embed"]["table_q"])
+    bound = {k: v for k, v in weights.items() if k in plan.tensors and plan.tensors[k].weight}
+    check_bindings(plan, weights=bound)
+    return bound
