@@ -7,17 +7,29 @@ Phases, each fatal on failure (any exception ends the run with a non-zero
 exit code and no result line):
 
 1. card   — the device's name and power limit from nvidia-smi;
-2. build  — nvcc builds every kernel of the main path from src/repro_torch/csrc;
-3. kernels — each kernel, launched on the card at the shapes the main path
-   gives it (plus ragged, multi-block, padded, GQA and causal cases), must
-   equal its plain PyTorch version run on CPU copies of the same inputs
-   (integer-exact: tolerance zero); then it is timed on the device (CUDA
-   graph replays between CUDA events) and per call with its dispatch;
-4. slice  — compile(cfg, backend="ita") -> session(8) -> forward for
-   MobileBERT, Whisper-tiny-encoder and DINOv2-small at their full configs
-   (random weights from seed 0): the launch counters must grow by exactly
-   the plan's kernel calls, and the output must equal, bit for bit, the
-   same session's forward on the CPU.
+2. build  — nvcc builds all four kernels (int8_gemm, ita_attention, igelu,
+   itamax) from src/repro_torch/csrc, one process each, in parallel;
+3. kernels — each kernel, launched on the card at the shapes the main
+   paths give it (plus ragged, multi-block, padded, GQA and causal cases),
+   must equal its plain PyTorch version run on CPU copies of the same
+   inputs (integer-exact: tolerance zero); then it is timed on the device
+   (CUDA graph replays between CUDA events), per call with its dispatch,
+   and its plain version on the card per call.  The exact integer product
+   of the plain path (``quant.qparams.imatmul`` on CUDA: ``torch._int_mm``
+   or float64) must equal the CPU's int32 product, a wrapping case included;
+4. slice  — compile(cfg, backend) -> session(8) -> forward on the card, for
+   - ``ita``: MobileBERT, Whisper-tiny-encoder and DINOv2-small at their
+     full configs (int8_gemm and ita_attention);
+   - ``w8a8``: the same three (exact integer products and the itamax
+     kernel, once per layer);
+   - ``ita`` at DeiT-Ti widths (dinov2-small with d_model 192, 3x64 heads,
+     d_ff 768, 197 patches; Touvron et al. 2021, Table 1): the GEMMs go to
+     the cluster, so each GELU stays a node of its own and runs the igelu
+     kernel;
+   random weights from seed 0, batch 8.  The launch counters, set to 0
+   just before the timed forwards, must grow by exactly the plan's kernel
+   calls, and the output must equal, bit for bit, the same session's
+   forward on the CPU.
 
 It prints the kernels line (JSON), the nvidia-smi line, and last the
 contract line {"ok": true, "device": {...}}.  It exits non-zero, printing
@@ -106,14 +118,6 @@ def device_ms(fn, calls: int = 20, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def host_ms(fn, reps: int = 3) -> float:
-    fn()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
 
 
 def max_abs_err(got, want) -> float:
@@ -154,8 +158,22 @@ ATTN_CASES = [
     ("causal", 8, 4, 4, 256, 64, None, True),
 ]
 
+#: (label, rows, n) of the itamax checks: one w8a8 layer's softmax at
+#: batch 8 (B*H*S rows of S logits), plus a ragged case
+ITAMAX_CASES = [
+    ("mobilebert", 8 * 4 * 128, 128),
+    ("whisper-tiny-encoder", 8 * 6 * 512, 512),
+    ("dinov2-small", 8 * 6 * 241, 241),
+    ("ragged", 1001, 77),
+]
+
+#: (label, shape) of the igelu checks: one DeiT-Ti-width layer's GELU at
+#: batch 8 (B*S rows of d_ff), plus a ragged case
+IGELU_CASES = [("deit-ti-widths", (8 * 197, 768)), ("ragged", (3, 7, 241))]
+
 S_GEMM = dict(s_in=0.05, s_w=0.01, s_out=0.05, s_preact=0.05)
 S_ATTN = dict(s_q=0.05, s_k=0.05, s_v=0.05, s_out=0.05)
+S_GELU = dict(in_scale=0.05, out_scale=0.05)
 
 
 def gemm_bytes_ops(m, k, n):
@@ -171,11 +189,50 @@ def attn_bytes_ops(bh, bhkv, s, d, kv_valid, causal):
     return n_bytes, 2 * 2 * bh * pairs * d
 
 
-def kernel_phase(torch, gen) -> list[dict]:
-    from repro_torch.kernels.int8_gemm import int8_gemm
-    from repro_torch.kernels.ita_attention import ita_attention
+def rows_bytes(n_elem: int) -> tuple[int, int]:
+    """An elementwise or rowwise int8 -> int8 kernel: each input byte read
+    once, each output byte written once; its integer instructions run on
+    the CUDA cores, for which the published table gives no rate, so the
+    bound is the bytes alone."""
+    return 2 * n_elem, 0
 
-    dev = torch.device("cuda")
+
+def exact_product_phase(torch, gen, dev) -> None:
+    """``imatmul`` on CUDA tensors against the CPU's int32 product (the
+    exact product in int64, wrapped to int32) at the plain path's shapes."""
+    from repro_torch.quant.qparams import imatmul
+
+    def ri(lo, hi, *shape, dtype=torch.int8):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=dtype)
+
+    cases = [
+        ("qlinear, _int_mm", ri(-128, 128, 8, 197, 192), ri(-127, 128, 192, 768)),
+        ("down projection, _int_mm", ri(-128, 128, 8 * 512, 1536), ri(-127, 128, 1536, 384)),
+        ("ragged N, float64", ri(-128, 128, 1000, 200), ri(-127, 128, 200, 300)),
+        ("Q K^T, float64", ri(-128, 128, 8, 6, 241, 64),
+         ri(-128, 128, 8, 6, 241, 64).transpose(-1, -2)),
+        ("A V, float64", ri(0, 128, 8, 6, 241, 241), ri(-128, 128, 8, 6, 241, 64)),
+        ("int32 that wraps, float64", ri(-(1 << 20), 1 << 20, 64, 32, dtype=torch.int32),
+         ri(-(1 << 20), 1 << 20, 32, 48, dtype=torch.int32)),
+    ]
+    for label, a, b in cases:
+        wide = torch.matmul(a.long(), b.long())
+        want = wide.to(torch.int32)
+        got = imatmul(a.to(dev), b.to(dev))
+        torch.cuda.synchronize()
+        require(got.dtype == torch.int32 and torch.equal(got.cpu(), want),
+                f"imatmul {label} {tuple(a.shape)} @ {tuple(b.shape)} != the CPU int32 product")
+        wraps = not torch.equal(wide, want.long())
+        require(wraps == label.startswith("int32"), f"imatmul {label}: wrap {wraps}")
+        log(f"  imatmul {label:26s} {tuple(a.shape)} @ {tuple(b.shape)}: equal"
+            f"{' (the int32 accumulator wraps)' if wraps else ''}")
+
+
+def kernel_phase(torch, gen, dev) -> list[dict]:
+    from repro_torch.kernels.igelu import igelu, igelu_ref
+    from repro_torch.kernels.int8_gemm import int8_gemm, int8_gemm_ref
+    from repro_torch.kernels.ita_attention import ita_attention, ita_attention_ref
+    from repro_torch.kernels.itamax import itamax, itamax_ref
 
     def ri8(*shape):
         return torch.randint(-128, 128, shape, generator=gen, dtype=torch.int8)
@@ -211,7 +268,7 @@ def kernel_phase(torch, gen) -> list[dict]:
     # -- int8_gemm timings over one MobileBERT layer's six launches
     xs = [(x.to(dev), w.to(dev), b.to(dev), kw) for x, w, b, kw in mb_layer]
     gemm_ms = device_ms(lambda: [int8_gemm(*a[:3], **a[3]) for a in xs])
-    gemm_plain = host_ms(lambda: [int8_gemm(*a[:3], **a[3]) for a in mb_layer])
+    gemm_plain = call_ms(lambda: [int8_gemm_ref(*a[:3], **a[3]) for a in xs], reps=10)
     ints = [(x.to(dev), w.to(dev)) for x, w, _, _ in mb_layer]
     lib_ms = device_ms(lambda: [torch._int_mm(x, w) for x, w in ints])
     g_bytes = g_ops = 0
@@ -243,9 +300,57 @@ def kernel_phase(torch, gen) -> list[dict]:
     q, k, v, kw = attn_mb
     qd, kd, vd = q.to(dev), k.to(dev), v.to(dev)
     attn_ms = device_ms(lambda: ita_attention(qd, kd, vd, **kw))
-    attn_plain = host_ms(lambda: ita_attention(q, k, v, **kw))
+    attn_plain = call_ms(lambda: ita_attention_ref(qd, kd, vd, **kw), reps=10)
     bh, s, d = q.shape[0] * q.shape[1], q.shape[2], q.shape[3]
     a_bound, a_by = bound_ms(*attn_bytes_ops(bh, bh, s, d, None, False))
+
+    # -- itamax: correctness on every case (rows of all-equal, one dominant
+    # entry and all -128 logits first), then the timings
+    m_err = 0.0
+    itamax_mb = None
+    for label, r, n in ITAMAX_CASES:
+        x = ri8(r, n)
+        x[0] = 17
+        x[1] = -128
+        x[1, n // 2] = 127
+        x[2] = -128
+        got = itamax(x.to(dev))
+        torch.cuda.synchronize()
+        want = itamax_ref(x)
+        m_err = max(m_err, max_abs_err(got, want))
+        require(torch.equal(got.cpu(), want), f"itamax {label} ({r}x{n}) != plain")
+        xd = x.to(dev)
+        ms = device_ms(lambda: itamax(xd))
+        per_call = call_ms(lambda: itamax(xd), reps=20)
+        plain = call_ms(lambda: itamax_ref(xd), reps=10)
+        bnd, by = bound_ms(*rows_bytes(r * n))
+        log(f"  itamax {label:22s} R={r:6d} n={n:4d}: equal; device {ms:.4f} ms (per call "
+            f"with dispatch {per_call:.4f} ms), plain on the card {plain:.4f} ms, bound "
+            f"{bnd:.5f} ms ({by})")
+        if label == "mobilebert":
+            itamax_mb = (ms, plain, bnd, by)
+
+    # -- igelu: correctness on every case (every int8 value first), timings
+    e_err = 0.0
+    igelu_deit = None
+    for label, shape in IGELU_CASES:
+        x = ri8(*shape)
+        x.view(-1)[:256] = torch.arange(-128, 128, dtype=torch.int8)
+        got = igelu(x.to(dev), **S_GELU)
+        torch.cuda.synchronize()
+        want = igelu_ref(x, **S_GELU)
+        e_err = max(e_err, max_abs_err(got, want))
+        require(torch.equal(got.cpu(), want), f"igelu {label} {shape} != plain")
+        xd = x.to(dev)
+        ms = device_ms(lambda: igelu(xd, **S_GELU))
+        per_call = call_ms(lambda: igelu(xd, **S_GELU), reps=20)
+        plain = call_ms(lambda: igelu_ref(xd, **S_GELU), reps=10)
+        bnd, by = bound_ms(*rows_bytes(x.numel()))
+        log(f"  igelu {label:22s} {str(shape):16s}: equal; device "
+            f"{ms:.4f} ms (per call with dispatch {per_call:.4f} ms), plain on the card "
+            f"{plain:.4f} ms, bound {bnd:.5f} ms ({by})")
+        if label == "deit-ti-widths":
+            igelu_deit = (ms, plain, bnd, by)
 
     return [
         {"name": "int8_gemm", "route": "cuda", "source": "src/repro_torch/csrc/int8_gemm.cu",
@@ -258,7 +363,20 @@ def kernel_phase(torch, gen) -> list[dict]:
          "replaces": "src/repro/kernels/ita_attention/kernel.py:130", "launches": 0,
          "max_abs_err": a_err, "ms": attn_ms, "plain_ms": attn_plain, "bound_ms": a_bound,
          "bound_by": a_by, "library_ms": None,
-         "work": "one MobileBERT layer at batch 8: BH=32, S=128, D=64, block_k=128"},
+         "work": "one MobileBERT layer at batch 8: BH=32, S=128, D=64, block_k=128; no "
+                 "PyTorch call computes integer flash-ITAMax attention"},
+        {"name": "igelu", "route": "cuda", "source": "src/repro_torch/csrc/igelu.cu",
+         "replaces": "src/repro/kernels/igelu/kernel.py:31", "launches": 0,
+         "max_abs_err": e_err, "ms": igelu_deit[0], "plain_ms": igelu_deit[1],
+         "bound_ms": igelu_deit[2], "bound_by": igelu_deit[3], "library_ms": None,
+         "work": "one DeiT-Ti-width layer's GELU at batch 8: (8*197, 768) int8; no "
+                 "PyTorch call computes integer i-GeLU"},
+        {"name": "itamax", "route": "cuda", "source": "src/repro_torch/csrc/itamax.cu",
+         "replaces": "src/repro/kernels/itamax/kernel.py:29", "launches": 0,
+         "max_abs_err": m_err, "ms": itamax_mb[0], "plain_ms": itamax_mb[1],
+         "bound_ms": itamax_mb[2], "bound_by": itamax_mb[3], "library_ms": None,
+         "work": "one MobileBERT w8a8 layer's softmax at batch 8: 4096 rows of 128 int8; "
+                 "no PyTorch call computes integer ITAMax"},
     ]
 
 
@@ -266,60 +384,79 @@ def kernel_phase(torch, gen) -> list[dict]:
 # slice phase
 # ---------------------------------------------------------------------------
 
-#: (arch, forwards, int8_gemm and ita_attention launches per forward): per
-#: layer the MHA node runs 4 GEMMs (Q, K, V, O) and one attention, the MLP 2
-SLICE = [("mobilebert", 3, 144, 24), ("whisper-tiny-encoder", 2, 24, 4),
-         ("dinov2-small", 2, 72, 12)]
+def deit_ti_widths(get_config):
+    """dinov2-small at DeiT-Ti widths (Touvron et al. 2021, Table 1;
+    facebook/deit-tiny-patch16-224): 12 layers, d_model 192, 3 heads of 64,
+    d_ff 768, 197 patches.  No width is a multiple of 128, so on ``ita``
+    every GEMM goes to the cluster and each GELU stays a node of its own."""
+    return get_config("dinov2-small").replace(
+        name="dinov2-small-deit-ti-widths", d_model=192, n_heads=3, n_kv_heads=3,
+        head_dim=64, d_ff=768, n_patches=197, max_seq=197)
 
 
-def slice_phase(torch, card: str) -> dict[str, int]:
+#: (phase, arch, backend, forwards, launches per forward of each kernel).
+#: ``ita``: per layer the MHA node runs 4 GEMMs (Q, K, V, O) and one
+#: attention, the MLP 2 GEMMs; ``w8a8``: one rowwise softmax per layer;
+#: DeiT-Ti widths on ``ita``: one attention and one GELU per layer, every
+#: GEMM on the cluster.
+SLICE = [
+    ("ita", "mobilebert", "ita", 3, dict(int8_gemm=144, ita_attention=24)),
+    ("ita", "whisper-tiny-encoder", "ita", 2, dict(int8_gemm=24, ita_attention=4)),
+    ("ita", "dinov2-small", "ita", 2, dict(int8_gemm=72, ita_attention=12)),
+    ("w8a8", "mobilebert", "w8a8", 2, dict(itamax=24)),
+    ("w8a8", "whisper-tiny-encoder", "w8a8", 2, dict(itamax=4)),
+    ("w8a8", "dinov2-small", "w8a8", 2, dict(itamax=12)),
+    ("deit-ti", "deit-ti-widths", "ita", 2, dict(ita_attention=12, igelu=12)),
+]
+
+
+def slice_phase(torch, card: str, dev) -> dict[str, int]:
+    from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.deploy import api
-    from repro_torch.kernels.int8_gemm import int8_gemm
-    from repro_torch.kernels.ita_attention import ita_attention
     from repro_torch.launch.serve import make_requests
 
-    launches = {"int8_gemm": 0, "ita_attention": 0}
-    for arch, steps, n_gemm, n_attn in SLICE:
-        cfg = get_config(arch)
-        model = api.compile(cfg, backend="ita", use_cache=False)
+    wrappers = kernels.wrappers()
+    launches = dict.fromkeys(wrappers, 0)
+    for phase, arch, backend, steps, per_fwd in SLICE:
+        cfg = deit_ti_widths(get_config) if arch == "deit-ti-widths" else get_config(arch)
+        model = api.compile(cfg, backend=backend, use_cache=False)
         plan = model.artifact
-        n_mha = sum(n.kind == "mha" and n.engine == "ita" for n in plan.nodes)
-        n_mm = sum(n.kind == "gemm" and n.engine == "ita" for n in plan.nodes)
-        require((n_mm + 4 * n_mha, n_mha) == (n_gemm, n_attn),
-                f"{arch}: plan holds {n_mm} GEMM and {n_mha} MHA accelerator nodes")
-        session = model.session(BATCH, seed=SEED)  # the card, by default
-        require(session.device.type == "cuda", "session did not default to the card")
+        # the card by default: the device is named only when it is not
+        session = model.session(BATCH, seed=SEED, device=None if dev.type == "cuda" else dev)
+        require(session.device == dev, f"session on {session.device}, not {dev}")
         reqs = make_requests(cfg, plan, BATCH, steps, SEED)
         dev_reqs = [r.to(session.device) for r in reqs]
         session.forward(dev_reqs[0])  # warm-up
         torch.cuda.synchronize()
 
-        int8_gemm.launches = 0
-        ita_attention.launches = 0
+        for w in wrappers.values():
+            w.launches = 0
         t0 = time.perf_counter()
         outs = [session.forward(r) for r in dev_reqs]
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        got_g, got_a = int8_gemm.launches, ita_attention.launches
-        launches["int8_gemm"] += got_g
-        launches["ita_attention"] += got_a
-        require(got_g == steps * n_gemm and got_a == steps * n_attn,
-                f"{arch}: launches int8_gemm {got_g} ita_attention {got_a}, expected "
-                f"{steps * n_gemm} and {steps * n_attn}")
+        got = {name: w.launches for name, w in wrappers.items()}
+        want = {name: steps * per_fwd.get(name, 0) for name in wrappers}
+        require(got == want, f"{phase} {arch}: launches {got}, expected {want}")
+        for name, n in got.items():
+            launches[name] += n
 
         out = outs[0]
         want_shape = (BATCH, plan.seq_len, cfg.vocab if cfg.vocab else cfg.d_model)
         require(tuple(out.shape) == want_shape, f"{arch}: output {tuple(out.shape)}")
         require(bool(torch.isfinite(out).all()), f"{arch}: non-finite output")
         cpu = model.session(BATCH, seed=SEED, device="cpu")
-        want = cpu.forward(reqs[0])
-        require(torch.equal(out.cpu(), want), f"{arch}: card forward != CPU forward")
+        require(torch.equal(out.cpu(), cpu.forward(reqs[0])),
+                f"{phase} {arch}: card forward != CPU forward")
         inf_s = steps * BATCH / dt
-        log(f"  {arch}: {plan.counts()['nodes']} plan nodes; {got_g // steps} int8_gemm + "
-            f"{got_a // steps} ita_attention launches per forward; output {want_shape} "
-            f"equals the CPU forward bit for bit; {steps} forwards of {BATCH}x{plan.seq_len} "
-            f"in {dt:.4f}s: {inf_s:.1f} inf/s, {inf_s * plan.seq_len:.0f} tok/s on {card}")
+        counts = plan.counts()
+        per = ", ".join(f"{n} {c // steps}" for n, c in got.items() if c) or "none"
+        log(f"  [{phase}] {arch} ({backend}): {counts['nodes']} plan nodes ({counts['ita']} "
+            f"ita / {counts['cluster']} cluster); launches per forward: {per}; output "
+            f"{want_shape} equals the CPU forward bit for bit; {steps} forwards of "
+            f"{BATCH}x{plan.seq_len} in {dt:.4f}s: {inf_s:.1f} inf/s, "
+            f"{inf_s * plan.seq_len:.0f} tok/s on {card}")
     return launches
 
 
@@ -340,25 +477,28 @@ def main() -> int:
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
-    names = ("int8_gemm", "ita_attention")
-    _build.build(*names)
-    log(f"[build] {', '.join(names)} in {time.perf_counter() - t0:.1f}s "
+    _build.build(*_build.KERNELS)
+    log(f"[build] {', '.join(_build.KERNELS)} in {time.perf_counter() - t0:.1f}s "
         f"(into {_build.build_dir()})")
-    for name in names:
+    for name in _build.KERNELS:
         for line in _build.compile_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
     gen = torch.Generator().manual_seed(SEED)
+    log("[kernels] the plain path's integer product against the CPU's int32 product")
+    dev = torch.device("cuda")
+    exact_product_phase(torch, gen, dev)
     log("[kernels] each kernel against its plain version (exact)")
-    kernels = kernel_phase(torch, gen)
+    kernels = kernel_phase(torch, gen, dev)
     for k in kernels:
-        log(f"  {k['name']}: {k['ms']:.4f} ms on the card, plain {k['plain_ms']:.2f} ms on the "
-            f"host CPU, bound {k['bound_ms']:.5f} ms ({k['bound_by']}), library "
+        log(f"  {k['name']}: {k['ms']:.4f} ms on the card, plain {k['plain_ms']:.4f} ms on "
+            f"the card, bound {k['bound_ms']:.5f} ms ({k['bound_by']}), library "
             f"{k['library_ms']} ms; {k['work']}")
 
-    log("[slice] compile -> session(8) -> forward on the card, vs the CPU forward")
-    launches = slice_phase(torch, card)
+    log("[slice] compile -> session(8) -> forward on the card, vs the CPU forward "
+        "(ita, w8a8, DeiT-Ti widths on ita)")
+    launches = slice_phase(torch, card, dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         require(k["launches"] > 0, f"{k['name']} was never launched on the main path")

@@ -2,7 +2,10 @@
 
 * :func:`attention_rowwise_i8` — the paper-faithful dataflow: int8
   ``Q K^T`` -> requant onto the ITAMax logit grid -> rowwise ITAMax
-  (8-bit A) -> int8 ``A V`` -> requant (the ``w8a8`` backend).
+  (8-bit A) -> int8 ``A V`` -> requant (the ``w8a8`` backend).  The two
+  products are exact integer products on any device (``imatmul``); the
+  softmax stage is the ``itamax`` wrapper, which launches its kernel on
+  the card and runs ``core.itamax.itamax_rowwise`` on the CPU.
 * :func:`attention_flash_i8` — single pass over KV blocks with the
   flash-ITAMax state; the plain version of the ``ita_attention`` kernel,
   bit-exact with it at equal ``block_k``.
@@ -19,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import itamax as im
+from repro_torch.kernels.itamax import itamax
 from repro_torch.quant.qparams import imatmul, make_qparams, requantize
 
 
@@ -63,7 +67,11 @@ def attention_rowwise_i8(
     causal: bool = False,
     mask: torch.Tensor | None = None,  # bool, broadcastable to [B,H,Sq,Sk]
 ) -> torch.Tensor:
-    """Paper-faithful ITA attention (full logits row). Returns int8."""
+    """Paper-faithful ITA attention (full logits row). Returns int8.
+
+    On CUDA tensors the softmax stage is the ``itamax`` kernel, which takes
+    no mask: a causal or masked call raises there.
+    """
     h, hkv = q_q.shape[1], k_q.shape[1]
     k_q = _repeat_kv(k_q, h // hkv)
     v_q = _repeat_kv(v_q, h // hkv)
@@ -75,7 +83,7 @@ def attention_rowwise_i8(
         full_mask = _causal_mask(sq, sk, sk - sq, q_q.device)
     if mask is not None:
         full_mask = mask if full_mask is None else (full_mask & mask)
-    a = im.itamax_rowwise(logits, mask=full_mask)
+    a = itamax(logits, mask=full_mask)
     out = imatmul(a, v_q)
     return requantize(out, p.out_mult, p.out_shift)
 

@@ -3,13 +3,14 @@
 Each operator runs either on the accelerator (GEMM / MHA, when shapes
 satisfy the geometric constraints) or on the cluster's fallback kernels.
 Here the accelerator slot of ``Backend.ITA`` holds the CUDA kernels
-(``int8_gemm``, ``ita_attention``), the accelerator slot of
-``Backend.W8A8`` the paper-faithful plain integer arithmetic, and the
-cluster the plain PyTorch integer operators.
+(``int8_gemm``, ``ita_attention``, ``igelu``), the accelerator slot of
+``Backend.W8A8`` the paper-faithful plain integer arithmetic (whose
+rowwise softmax is the ``itamax`` kernel on the card), and the cluster
+the plain PyTorch integer operators.
 
-``DEFAULT_TABLE`` holds the encoder's kinds: gemm, mha, layernorm, add,
-embed, classifier and dequant.  A plan node of any other kind fails at
-bind time.
+``DEFAULT_TABLE`` holds the encoder's kinds: gemm, mha, softmax, gelu,
+layernorm, add, embed, classifier and dequant.  A plan node of any other
+kind fails at bind time.
 """
 
 from __future__ import annotations
@@ -138,6 +139,8 @@ def populate_default_table(table: DispatchTable | None = None) -> DispatchTable:
 
       gemm:       fn(x, w, b, *, scales, act, s_preact) -> int8
       mha:        fn(qh, kh, vh, *, s_act, s_out) -> int8  [B, H, S, D]
+      softmax:    fn(logits, mask=None) -> int8  (rowwise ITAMax, last axis)
+      gelu:       fn(x_q, *, s_in, s_out) -> int8
       layernorm:  fn(kind, pq, x_q, s_gamma, s_out) -> int8
       add:        fn(a_q, b_q, *, scales) -> int8
       embed:      fn(table_q, tokens) -> int8
@@ -150,7 +153,9 @@ def populate_default_table(table: DispatchTable | None = None) -> DispatchTable:
 
     from repro_torch.core.attention import MhaQParams, attention_rowwise_i8
     from repro_torch.core.quant_linear import ACT_IDENTITY, make_qlinear_params, qlinear_i8
+    from repro_torch.kernels.igelu import igelu, igelu_ref
     from repro_torch.kernels.int8_gemm import int8_gemm
+    from repro_torch.kernels.itamax import itamax
     from repro_torch.models import layers as L
     from repro_torch.models.encoder import attention_ita
 
@@ -193,6 +198,24 @@ def populate_default_table(table: DispatchTable | None = None) -> DispatchTable:
     table.register("mha", Engine.CLUSTER, _mha_plain)
     table.register("mha", Engine.ACCELERATOR, _mha_plain, backend=Backend.W8A8)
     table.register("mha", Engine.ACCELERATOR, _mha_ita, backend=Backend.ITA)
+
+    # -- softmax: standalone rowwise ITAMax, cluster only — like the ASIC,
+    # the ITAMax unit accelerates softmax only inside the MHA datapath
+    # ("softmax" is deliberately absent from ACCEL_KINDS); on the card the
+    # wrapper launches the itamax kernel
+    table.register("softmax", Engine.CLUSTER, itamax)
+
+    # -- gelu: standalone i-GeLU (survives only when the producing GEMM
+    # went to the cluster, so the epilogue fusion could not fold it)
+    def _igelu_plain(x_q, *, s_in, s_out):
+        return igelu_ref(x_q, in_scale=s_in, out_scale=s_out)
+
+    def _igelu_ita(x_q, *, s_in, s_out):
+        return igelu(x_q, in_scale=s_in, out_scale=s_out)
+
+    table.register("gelu", Engine.CLUSTER, _igelu_plain)
+    table.register("gelu", Engine.ACCELERATOR, _igelu_plain, backend=Backend.W8A8)
+    table.register("gelu", Engine.ACCELERATOR, _igelu_ita, backend=Backend.ITA)
 
     # -- cluster-only auxiliaries (the paper's Snitch fallback kernels)
     table.register("layernorm", Engine.CLUSTER, L.norm_apply_i8)

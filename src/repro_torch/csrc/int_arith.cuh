@@ -40,6 +40,15 @@ __device__ __forceinline__ int igelu_int(int q, int q_b, int q_c, int q_1) {
   return (int)(0u - (unsigned)wmul(q, wadd(qerf, q_1)));
 }
 
+// round(2^bits * 2^(-t/32)) for t >= 0 (itamax.py _exp2_int, ITAMAX_B = 5),
+// from the 32-entry LUT of that function at t = 0..31: the fractional part
+// of t/32 indexes the LUT, the integer part is a round-half-up shift.
+__device__ __forceinline__ int exp2_lut(const int* lut, int t) {
+  int q = min(t >> 5, 31);
+  int bias = q > 0 ? (1 << (q - 1)) : 0;
+  return (lut[t & 31] + bias) >> q;
+}
+
 // floor division for b > 0 (C's / truncates toward zero).
 __device__ __forceinline__ int floor_div(int a, int b) {
   int q = a / b;

@@ -67,13 +67,6 @@ __host__ __device__ Layout make_layout(int qt, int bk, int d) {
   return L;
 }
 
-// round(2^7 * 2^(-t/32)) for t >= 0 (itamax.py _exp2_int with the 7-bit LUT)
-__device__ __forceinline__ int exp2_lut7(const int* lut7, int t) {
-  int q = min(t >> 5, 31);
-  int bias = q > 0 ? (1 << (q - 1)) : 0;
-  return (lut7[t & 31] + bias) >> q;
-}
-
 // x * 2^(-delta/32), delta >= 0 (itamax.py _renorm_factor_apply)
 __device__ __forceinline__ int renorm(const int* rlut, int x, int delta) {
   int q = min(delta >> 5, 31);
@@ -168,7 +161,7 @@ __global__ void __launch_bounds__(NT) ita_attention_kernel(
       for (int c = lane; c < block_k; c += 32) {
         int kpos = j0 + c;
         bool keep = kpos < kv_valid && (!causal || kpos <= qpos);
-        int val = keep ? exp2_lut7(lut7, min(max(new_m - Sr[c], 0), 1 << 20)) : 0;
+        int val = keep ? ita::exp2_lut(lut7, min(max(new_m - Sr[c], 0), 1 << 20)) : 0;
         Ps[r * vtrow + c] = (int8_t)val;
         sum += val;
       }

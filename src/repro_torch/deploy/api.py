@@ -11,8 +11,9 @@ one package loads in the other.
 
 ``CompiledModel.session(batch_size)`` binds quantized weights on a device
 and returns an :class:`InferenceSession` whose ``forward(x)`` runs the
-plan.  Sessions run on the CUDA device unless the caller passes
-``device="cpu"``; with no card and no explicit CPU request they raise.
+plan.  Sessions of either backend run on the CUDA device unless the
+caller passes ``device="cpu"``; with no card and no explicit CPU request
+they raise.
 
 Not ported yet: the decoder plan pair and its session methods, the
 static plan verifier (``verify=``), autotuning and the head-by-head
@@ -328,11 +329,6 @@ class InferenceSession:
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and model.backend is not Backend.ITA:
-            raise NotImplementedError(
-                f"the {model.backend.value} backend runs on the CPU only in this "
-                "port; compile with backend='ita' to run on the card"
-            )
         self.model = model
         self.cfg = model.cfg
         self.backend = model.backend

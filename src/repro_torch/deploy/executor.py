@@ -27,6 +27,7 @@ from repro_torch.core.heterogeneous import (
     backend_granule,
 )
 from repro_torch.core.quant_linear import ACT_GELU, ACT_IDENTITY, ACT_RELU
+from repro_torch.deploy.patterns import opdesc_from_attrs
 from repro_torch.deploy.plan import DeploymentPlan, PlanNode
 
 #: fused-activation vocabulary the GEMM runner can lower
@@ -135,7 +136,12 @@ def _compile_cluster(node: PlanNode, table, backend) -> Callable:
     """Bind one cluster-engine node of the encoder's kinds."""
     kind = node.kind
     a = node.attrs
-    fn = _resolve(table, OpDesc(kind, shapes=(tuple(a.get("dims", ())),)), backend)
+    # The node's description is the plan's own (rows padded to the granule,
+    # patterns.opdesc_from_attrs), not its unpadded dims as in the JAX
+    # package's executor: a gelu node that the plan marks ``ita`` then
+    # resolves to the igelu kernel at any sequence length.  Both forms
+    # compute the same ints, so only the engine can differ.
+    fn = _resolve(table, opdesc_from_attrs(kind, a, backend_granule(backend)), backend)
     ins = node.inputs
     if kind == "layernorm":
         norm, s_gamma, s_out = a["norm"], a["s_gamma"], a["s_out"]
@@ -155,6 +161,9 @@ def _compile_cluster(node: PlanNode, table, backend) -> Callable:
     if kind == "add":
         scales = tuple(a["scales"])
         return lambda env: fn(env[ins[0]], env[ins[1]], scales=scales)
+    if kind == "gelu":
+        s_in, s_out = a["scales"]
+        return lambda env: fn(env[ins[0]], s_in=s_in, s_out=s_out)
     if kind == "embed":
         return lambda env: fn(env[ins[0]], env[ins[1]])
     if kind == "classifier":

@@ -20,6 +20,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+#: every kernel library: ``csrc/<name>.cu`` -> ``<name>-<hash>.so``
+KERNELS = ("int8_gemm", "ita_attention", "igelu", "itamax")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

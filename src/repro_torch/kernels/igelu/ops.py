@@ -1,0 +1,57 @@
+"""Public wrapper of the standalone i-GeLU kernel.
+
+On a CUDA tensor it launches ``csrc/igelu.cu``; on a CPU tensor it runs
+the plain version (:func:`igelu_ref`), and only there.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.core.igelu import make_igelu_params
+from repro_torch.kernels import _build
+from repro_torch.kernels.igelu.ref import igelu_ref
+from repro_torch.quant.qparams import make_qparams
+
+
+@functools.cache
+def _lib():
+    fn = _build.load("igelu").igelu_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
+    return fn
+
+
+def igelu(x_q: torch.Tensor, *, in_scale: float, out_scale: float) -> torch.Tensor:
+    """Elementwise i-GeLU of int8 ``x_q`` (any shape) onto ``out_scale``,
+    bit-exact with :func:`igelu_ref`.  The constants come from
+    ``make_igelu_params(in_scale)`` and the requant from
+    ``make_qparams(gelu.out_scale, 1.0, out_scale)``, as in the JAX
+    package's wrapper; unlike it, no shape restriction applies."""
+    if x_q.device.type == "cpu":
+        return igelu_ref(x_q, in_scale=in_scale, out_scale=out_scale)
+    if not x_q.is_cuda:
+        raise RuntimeError(f"igelu runs on cuda or cpu tensors, got {x_q.device}")
+    if x_q.dtype != torch.int8:
+        raise TypeError(f"igelu takes int8, got {x_q.dtype}")
+    gp = make_igelu_params(in_scale)
+    qp = make_qparams(gp.out_scale, 1.0, out_scale)
+    dev = x_q.device
+    x = _build.as_kernel_arg(x_q)
+    out = torch.empty(x_q.shape, dtype=torch.int8, device=dev)
+    if out.numel() == 0:
+        return out
+    launch = _lib()
+    with torch.cuda.device(dev):
+        rc = launch(x.data_ptr(), out.data_ptr(), x.numel(), gp.q_b, gp.q_c, gp.q_1,
+                    qp.mult, qp.shift, _build.stream_of(out))
+    _build.check(rc, "igelu")
+    igelu.launches += 1
+    return out
+
+
+igelu.launches = 0  # kernel launches since the last reset

@@ -7,7 +7,11 @@ device's name:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mobilebert --batch 8 --gen 4
 
-``--device cpu`` runs the plain PyTorch versions on the CPU instead.
+``--backend w8a8`` runs the paper-faithful integer arithmetic instead of
+the kernel backend (on the card its rowwise softmax is the ``itamax``
+kernel).  The summary line names the kernels the forwards launched, with
+their launches per forward.  ``--device cpu`` runs the plain PyTorch
+versions on the CPU instead.
 ``--profile`` adds one traced batch after the timed loop and prints the
 device time by kernel (``torch.profiler``) and the device's busy share of
 the untraced loop's mean forward time; the timed loop itself runs
@@ -21,6 +25,7 @@ import time
 
 import torch
 
+from repro_torch import kernels
 from repro_torch.configs import get_config, reduced
 from repro_torch.deploy import api
 
@@ -86,11 +91,15 @@ def serve_encoder(model: api.CompiledModel, *, batch_size: int, steps: int, seed
     out = session.forward(batches[-1])
     _sync(session.device)
     t_setup = time.perf_counter() - t0
+    wrappers = kernels.wrappers()
+    for w in wrappers.values():
+        w.launches = 0
     t0 = time.perf_counter()
     for b in batches[:steps]:
         out = session.forward(b)
     _sync(session.device)
     t_serve = time.perf_counter() - t0
+    launched = {name: w.launches // steps for name, w in wrappers.items() if w.launches}
     counts = plan.counts()
     stats = {
         "arch": cfg.name,
@@ -103,12 +112,15 @@ def serve_encoder(model: api.CompiledModel, *, batch_size: int, steps: int, seed
         "inf_per_s": steps * batch_size / t_serve,
         "tok_per_s": steps * batch_size * plan.seq_len / t_serve,
         "out_shape": tuple(out.shape),
+        "kernel_launches_per_forward": launched,
     }
+    names = ", ".join(f"{n} {c}x" for n, c in launched.items()) or "none"
     print(
         f"plan-serving [{model.backend.value}] {cfg.name} on {stats['device']}: "
         f"{counts['nodes']} nodes ({counts['ita']} ita / {counts['cluster']} cluster); "
         f"bind+warm-up {t_setup:.2f}s; {steps} batches of {batch_size}x{plan.seq_len} in "
-        f"{t_serve:.4f}s ({stats['inf_per_s']:.1f} inf/s, {stats['tok_per_s']:.0f} tok/s)"
+        f"{t_serve:.4f}s ({stats['inf_per_s']:.1f} inf/s, {stats['tok_per_s']:.0f} tok/s); "
+        f"kernels per forward: {names}"
     )
     if profile:
         prof = profile_forward(session, batches[0])

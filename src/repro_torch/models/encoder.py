@@ -1,10 +1,12 @@
 """Encoder-only models — the paper's three workloads, integer path (torch port).
 
 MobileBERT (tokens), DINOv2-S (patch embeddings) and the Whisper-tiny
-encoder (frame embeddings).  ``forward_w8a8`` runs either backend:
-``"w8a8"`` is the plain integer arithmetic with rowwise ITAMax (CPU),
-``"ita"`` sends the GEMMs through the ``int8_gemm`` kernel and attention
-through the ``ita_attention`` kernel (flash-ITAMax, 128-row KV blocks).
+encoder (frame embeddings).  ``forward_w8a8`` runs either backend, on
+the card or on the CPU: ``"w8a8"`` is the plain integer arithmetic with
+rowwise ITAMax (exact integer products, ``quant.qparams.imatmul``, and
+the ``itamax`` kernel on the card), ``"ita"`` sends the GEMMs through the
+``int8_gemm`` kernel and attention through the ``ita_attention`` kernel
+(flash-ITAMax, 128-row KV blocks).
 
 Parameters are plain dicts; ``params["layers"]`` is a list with one dict
 per layer.
@@ -145,12 +147,16 @@ def attention_ita(qh, kh, vh, s_act: float, s_out: float) -> torch.Tensor:
 
 
 def _attention_i8(cfg, qh, kh, vh, p: MhaQParams, backend: str, s_act: float):
+    """``ita``: the attention kernel; ``w8a8``: rowwise attention, whose
+    softmax is the ``itamax`` kernel on the card."""
     if backend == "ita":
         return attention_ita(qh, kh, vh, s_act, s_act)
     return attention_rowwise_i8(qh, kh, vh, p)
 
 
 def _linear(pq: dict, x_q: torch.Tensor, site: L.QLinearSite, backend: str) -> torch.Tensor:
+    """``ita``: the ``int8_gemm`` kernel; ``w8a8``: the plain quantized
+    linear, an exact integer product on any device."""
     if backend == "ita":
         return int8_gemm(x_q, pq["w_q"], pq.get("b_q"), s_in=site.s_in, s_w=site.s_w,
                          s_out=site.s_out, act=site.act, s_preact=site.s_preact)

@@ -84,18 +84,64 @@ def i32(x, device=None) -> torch.Tensor:
 
 
 def imatmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Exact integer ``a @ b`` with int32 accumulation (plain versions only).
+    """Exact integer ``a @ b`` with int32 accumulation, wrapping as int32.
 
-    ``int8 @ int8`` in torch returns int8 and wraps, so both operands are
-    widened first.  CUDA has no integer matmul: on the card these products
-    run inside the hand-written kernels, never here.
+    ``int8 @ int8`` in torch returns int8 and wraps, so on the CPU both
+    operands are widened to int32 first.  CUDA has no int32 matmul: there
+    the product goes through :func:`imatmul_exact`.
     """
     if a.is_cuda or b.is_cuda:
-        raise NotImplementedError(
-            "integer matmul of the plain path runs on the CPU only; on the "
-            "card the int8 products run inside the CUDA kernels"
-        )
+        return imatmul_exact(a, b)
     return torch.matmul(i32(a), i32(b))
+
+
+#: float64 holds every integer of magnitude <= 2^53 exactly
+F64_EXACT_BITS = 53
+
+#: ``b`` with ``|x| <= 2^b`` for every value ``x`` of the dtype
+_DTYPE_BITS = {torch.bool: 0, torch.int8: 7, torch.uint8: 8, torch.int16: 15,
+               torch.int32: 31, torch.int64: 63}
+
+
+def _value_bits(t: torch.Tensor) -> int:
+    """``b`` with ``|x| < 2^b`` for every value of ``t`` (one reduction)."""
+    if t.numel() == 0:
+        return 0
+    return max(int(t.max()), -int(t.min())).bit_length()
+
+
+def imatmul_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of integer tensors as the int32 accumulator of the JAX
+    package's ``preferred_element_type=int32`` products, on any device.
+
+    2-D-weight int8 products whose shapes ``torch._int_mm`` takes (more
+    than 16 rows, K and N multiples of 8) go through it.  Every other
+    product runs in float64, exact while every partial sum stays within
+    2^53: ``K * max|a| * max|b| < 2^53``, checked from the dtypes (K below
+    2^39 for int8 x int8, 2^15 for int32 x int8) or, where the dtypes
+    cannot show it, from the values (one reduction each; it raises
+    beyond).  The float64 result converts through int64 to int32, so it
+    wraps as an int32 accumulator does.  Not float32: its 2^24 limit is
+    passed by a 1536-deep int8 product.
+    """
+    k = a.shape[-1]
+    if b.shape[-2] != k:
+        raise ValueError(f"imatmul: {tuple(a.shape)} @ {tuple(b.shape)}")
+    if a.dtype == torch.int8 and b.dtype == torch.int8 and b.dim() == 2:
+        a2 = a.reshape(-1, k)
+        if a2.shape[0] > 16 and k % 8 == 0 and b.shape[1] % 8 == 0:
+            out = torch._int_mm(a2.contiguous(), b.contiguous())
+            return out.reshape(*a.shape[:-1], b.shape[1])
+    k_bits = k.bit_length()  # K < 2^k_bits
+    if k_bits + _DTYPE_BITS[a.dtype] + _DTYPE_BITS[b.dtype] > F64_EXACT_BITS:
+        a_bits, b_bits = _value_bits(a), _value_bits(b)
+        if k_bits + a_bits + b_bits > F64_EXACT_BITS:
+            raise ValueError(
+                f"imatmul: K={k} with |a| < 2^{a_bits} and |b| < 2^{b_bits} may pass "
+                f"2^{F64_EXACT_BITS}, where float64 stops being exact"
+            )
+    acc = torch.matmul(a.to(torch.float64), b.to(torch.float64))
+    return acc.to(torch.int64).to(torch.int32)
 
 
 def _param(p, device):

@@ -12,9 +12,14 @@ This file imports no JAX, so it runs where only PyTorch is installed.
 import pytest
 import torch
 
+from repro_torch.configs import get_config, reduced
 from repro_torch.core.quant_linear import ACT_GELU, ACT_IDENTITY, ACT_RELU
+from repro_torch.deploy import api
+from repro_torch.kernels.igelu import igelu, igelu_ref
 from repro_torch.kernels.int8_gemm import int8_gemm
 from repro_torch.kernels.ita_attention import ita_attention, ita_decode
+from repro_torch.kernels.itamax import itamax, itamax_ref
+from repro_torch.quant.qparams import imatmul
 
 GEMM_KW = dict(s_in=0.02, s_w=0.005, s_out=0.05, s_preact=0.04)
 ATTN_KW = dict(s_q=0.02, s_k=0.02, s_v=0.02, s_out=0.02)
@@ -78,3 +83,79 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros((1, 1, 8, 6), dtype=torch.int8, device=cuda_device)
     with pytest.raises(ValueError, match="multiples of 4"):
         ita_attention(q, q, q, **ATTN_KW)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8 * 197, 768), (3, 7, 241), (5,)])
+def test_igelu_cuda_vs_plain(cuda_device, shape):
+    gen = torch.Generator().manual_seed(sum(shape))
+    x = _ri8(gen, shape)
+    kw = dict(in_scale=0.04, out_scale=0.05)
+    before = igelu.launches
+    got = igelu(x.to(cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert igelu.launches == before + 1
+    assert torch.equal(got.cpu(), igelu_ref(x, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n", [(8 * 4 * 128, 128), (8 * 6 * 241, 241), (1001, 77), (3, 4096)])
+def test_itamax_cuda_vs_plain(cuda_device, r, n):
+    gen = torch.Generator().manual_seed(r + n)
+    x = _ri8(gen, (r, n))
+    x[0], x[1], x[2] = 5, -128, -128
+    x[1, n // 2] = 127
+    before = itamax.launches
+    got = itamax(x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert itamax.launches == before + 1
+    assert torch.equal(got.cpu(), itamax_ref(x))
+
+
+@pytest.mark.cuda
+def test_itamax_cuda_refuses_a_mask(cuda_device):
+    x = torch.zeros((4, 8), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="mask"):
+        itamax(x, mask=torch.ones((4, 8), dtype=torch.bool, device=cuda_device))
+    with pytest.raises(TypeError):
+        itamax(x.to(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["int_mm", "float64", "batched", "int32_wraps"])
+def test_exact_product_cuda_vs_int32(cuda_device, case):
+    gen = torch.Generator().manual_seed(len(case))
+
+    def ri(lo, hi, *shape, dtype=torch.int8):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=dtype)
+
+    a, b = {
+        "int_mm": (ri(-128, 128, 2, 100, 1536), ri(-127, 128, 1536, 384)),
+        "float64": (ri(-128, 128, 100, 200), ri(-127, 128, 200, 30)),
+        "batched": (ri(-128, 128, 2, 3, 97, 64), ri(-128, 128, 2, 3, 64, 97)),
+        "int32_wraps": (ri(-(1 << 20), 1 << 20, 40, 16, dtype=torch.int32),
+                        ri(-(1 << 20), 1 << 20, 16, 24, dtype=torch.int32)),
+    }[case]
+    want = torch.matmul(a.long(), b.long()).to(torch.int32)
+    got = imatmul(a.to(cuda_device), b.to(cuda_device))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_w8a8_session_forward_on_the_card(cuda_device):
+    """The default backend runs on the card: its products are exact integer
+    products and its softmax the itamax kernel, once per layer."""
+    cfg = reduced(get_config("mobilebert"))
+    model = api.compile(cfg, use_cache=False)
+    assert model.backend.value == "w8a8"
+    tokens = torch.randint(0, cfg.vocab, (2, 128), generator=torch.Generator().manual_seed(3),
+                           dtype=torch.int32)
+    session = model.session(2)
+    assert session.device.type == "cuda"
+    counts = {f: f.launches for f in (itamax, int8_gemm, ita_attention, igelu)}
+    got = session.forward(tokens)
+    torch.cuda.synchronize()
+    assert itamax.launches - counts[itamax] == cfg.n_layers
+    assert all(f.launches == n for f, n in counts.items() if f is not itamax)
+    assert torch.equal(got.cpu(), model.session(2, device="cpu").forward(tokens))
