@@ -8,13 +8,20 @@ exit code and no result line):
 
 1. card   — the device's name and power limit from nvidia-smi;
 2. build  — nvcc builds all four kernels (int8_gemm, ita_attention, igelu,
-   itamax) from src/repro_torch/csrc, one process each, in parallel;
+   itamax) from src/repro_torch/csrc, one process each, in parallel, and
+   prints each kernel's registers and spills (-Xptxas -v); where the
+   toolkit has cuobjdump, the SASS of int8_gemm and ita_attention must
+   hold integer tensor-core instructions (IMMA for mma.sync, a GMMA form
+   for wgmma);
 3. kernels — each kernel, launched on the card at the shapes the main
    paths give it (plus ragged, multi-block, padded, GQA and causal cases),
    must equal its plain PyTorch version run on CPU copies of the same
    inputs (integer-exact: tolerance zero); then it is timed on the device
    (CUDA graph replays between CUDA events), per call with its dispatch,
-   and its plain version on the card per call.  The exact integer product
+   and its plain version on the card per call.  int8_gemm and
+   ita_attention print each shape's time beside the recorded time of the
+   CUDA-core versions they replaced and, for the GEMM, torch._int_mm's
+   time in the same call.  The exact integer product
    of the plain path (``quant.qparams.imatmul`` on CUDA: ``torch._int_mm``
    or float64) must equal the CPU's int32 product, a wrapping case included;
 4. slice  — compile(cfg, backend) -> session(8) -> forward on the card, for
@@ -120,6 +127,51 @@ def device_ms(fn, calls: int = 20, reps: int = 10) -> float:
 
 
 
+#: device ms of the CUDA-core kernels that the tensor-core ones replaced
+#: (this script on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md §6):
+#: int8_gemm by (label, K, N), ita_attention by label
+CUDA_CORE_GEMM_MS = {
+    ("mobilebert", 128, 256): 0.0171, ("mobilebert", 256, 128): 0.0305,
+    ("mobilebert", 128, 512): 0.0176, ("mobilebert", 512, 128): 0.0588,
+    ("whisper-tiny-encoder", 384, 384): 0.0540, ("whisper-tiny-encoder", 384, 1536): 0.1643,
+    ("whisper-tiny-encoder", 1536, 384): 0.2010, ("dinov2-small", 384, 384): 0.0473,
+    ("dinov2-small", 384, 1536): 0.0983, ("dinov2-small", 1536, 384): 0.1778,
+}
+CUDA_CORE_GEMM_LAYER_MS = 0.1557  # one MobileBERT layer's six launches
+CUDA_CORE_ATTN_MS = {"mobilebert": 0.0193, "whisper-tiny-encoder": 0.1847,
+                "dinov2-small": 0.0529, "gqa-group2": 0.0527, "causal": 0.0407}
+
+
+def vs_cuda_core(ms: float, old: float | None) -> str:
+    if old is None:
+        return "CUDA-core version: not recorded"
+    return f"CUDA-core version {old:.4f} ms ({old / ms:.2f}x)"
+
+
+def tensor_core_sass(build) -> None:
+    """Count the integer tensor-core instructions in the SASS of the
+    tensor-core kernels' libraries; each must hold some.  Skipped (and
+    said so) where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump") or (
+        str(Path(CUDA_HOME) / "bin" / "cuobjdump") if CUDA_HOME else None)
+    if not tool or not Path(tool).exists():
+        log("  cuobjdump not found: the SASS is not inspected")
+        return
+    for name in ("int8_gemm", "ita_attention"):
+        sass = subprocess.run([tool, "-sass", str(build._lib_path(name))], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+        ops = re.findall(r"\b(IMMA|[A-Z]*GMMA)\.?([\w.]*)", sass)
+        kinds = sorted({f"{op}.{form}" if form else op for op, form in ops})
+        log(f"  {name}: {len(ops)} integer tensor-core instructions in the SASS "
+            f"({', '.join(kinds[:4])})")
+        require(len(ops) > 0, f"{name}: no IMMA/GMMA instruction in its SASS")
+
+
 def max_abs_err(got, want) -> float:
     """Largest |card - plain| over one comparison (0 when integer-exact)."""
     return float((got.cpu().to(want.dtype).int() - want.int()).abs().max())
@@ -181,9 +233,9 @@ def gemm_bytes_ops(m, k, n):
 
 
 def attn_bytes_ops(bh, bhkv, s, d, kv_valid, causal):
-    """q, k, v read once, out written once, the two LUTs; int8 ops of
+    """q, k, v read once, out written once, the kernel's tables; int8 ops of
     Q K^T and P V over the (query, key) pairs this run's masks keep."""
-    n_bytes = 2 * bh * s * d + 2 * bhkv * s * d + 64 * 4
+    n_bytes = 2 * bh * s * d + 2 * bhkv * s * d + 96 * 4
     keys = s if kv_valid is None else kv_valid
     pairs = s * (s + 1) // 2 if causal else s * keys
     return n_bytes, 2 * 2 * bh * pairs * d
@@ -231,7 +283,9 @@ def exact_product_phase(torch, gen, dev) -> None:
 def kernel_phase(torch, gen, dev) -> list[dict]:
     from repro_torch.kernels.igelu import igelu, igelu_ref
     from repro_torch.kernels.int8_gemm import int8_gemm, int8_gemm_ref
+    from repro_torch.kernels.int8_gemm.ops import gemm_grid
     from repro_torch.kernels.ita_attention import ita_attention, ita_attention_ref
+    from repro_torch.kernels.ita_attention.ops import attn_grid
     from repro_torch.kernels.itamax import itamax, itamax_ref
 
     def ri8(*shape):
@@ -258,9 +312,12 @@ def kernel_phase(torch, gen, dev) -> list[dict]:
         lib = device_ms(lambda: torch._int_mm(xd, wd)) \
             if m > 16 and k % 8 == 0 and n % 8 == 0 else None
         bnd, by = bound_ms(*gemm_bytes_ops(m, k, n))
+        bm, bn, gx, gy = gemm_grid(m, n)
         log(f"  int8_gemm {label:22s} M={m:5d} K={k:5d} N={n:5d} act={act}: equal; "
-            f"device {ms:.4f} ms (per call with dispatch {per_call:.4f} ms), _int_mm "
-            f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound {bnd:.5f} ms ({by})")
+            f"device {ms:.4f} ms (per call with dispatch {per_call:.4f} ms), "
+            f"{vs_cuda_core(ms, CUDA_CORE_GEMM_MS.get((label, k, n)))}, _int_mm "
+            f"{'n/a' if lib is None else f'{lib:.4f} ms ({lib / ms:.2f}x)'}, bound "
+            f"{bnd:.5f} ms ({by}); tile {bm}x{bn}, {gx * gy} blocks")
         if label == "mobilebert":
             reps = 3 if (k, n) == (128, 256) else 1  # Q, K and V share a shape
             mb_layer += [(x, w, bias, kw)] * reps
@@ -276,6 +333,9 @@ def kernel_phase(torch, gen, dev) -> list[dict]:
         b_, o_ = gemm_bytes_ops(x.shape[0], x.shape[1], w.shape[1])
         g_bytes, g_ops = g_bytes + b_, g_ops + o_
     g_bound, g_by = bound_ms(g_bytes, g_ops)
+    log(f"  int8_gemm one MobileBERT layer (6 launches): {gemm_ms:.4f} ms, "
+        f"{vs_cuda_core(gemm_ms, CUDA_CORE_GEMM_LAYER_MS)}, _int_mm {lib_ms:.4f} ms "
+        f"({lib_ms / gemm_ms:.2f}x), bound {g_bound:.5f} ms ({g_by})")
 
     # -- ita_attention: correctness on every case
     attn_mb = None
@@ -291,9 +351,12 @@ def kernel_phase(torch, gen, dev) -> list[dict]:
         ms = device_ms(lambda: ita_attention(qd, kd, vd, **kw))
         per_call = call_ms(lambda: ita_attention(qd, kd, vd, **kw), reps=20)
         bnd, by = bound_ms(*attn_bytes_ops(b * h, b * hkv, s, d, kv_valid, causal))
+        w, split, _, gx, gy = attn_grid(b * h, s, d, 128)
         log(f"  ita_attention {label:22s} BH={b * h:3d} S={s:4d} D={d} kv_valid={kv_valid} "
             f"causal={causal} group={h // hkv}: equal; device {ms:.4f} ms (per call with "
-            f"dispatch {per_call:.4f} ms), bound {bnd:.5f} ms ({by})")
+            f"dispatch {per_call:.4f} ms), {vs_cuda_core(ms, CUDA_CORE_ATTN_MS.get(label))}, bound "
+            f"{bnd:.5f} ms ({by}); {w * split} warps a block ({split} per 16 rows), "
+            f"{gx * gy} blocks")
         if label == "mobilebert":
             attn_mb = (q, k, v, kw)
 
@@ -482,8 +545,9 @@ def main() -> int:
         f"(into {_build.build_dir()})")
     for name in _build.KERNELS:
         for line in _build.compile_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {name}: {line.strip()}")
+    tensor_core_sass(_build)
 
     gen = torch.Generator().manual_seed(SEED)
     log("[kernels] the plain path's integer product against the CPU's int32 product")

@@ -27,6 +27,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+#: streaming multiprocessors of the H100 SXM the launch shapes are chosen
+#: for (one block per SM is one wave)
+NUM_SMS = 132
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 

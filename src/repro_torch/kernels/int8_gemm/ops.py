@@ -53,12 +53,29 @@ def _device_params(s_in, s_w_bytes, s_out, act, s_preact, n, device):
     )
 
 
+#: block tiles (BM, BN) the kernel is compiled for, largest first; a warp
+#: computes 32x32 of the output (16x32 in the 16-row tile)
+GEMM_TILES = ((128, 64), (64, 64), (64, 32), (32, 32), (16, 32))
+
+
+def gemm_grid(m: int, n: int) -> tuple[int, int, int, int]:
+    """(BM, BN, grid_x, grid_y) of a launch: block (x, y) computes rows
+    [x*BM, x*BM + BM) and columns [y*BN, y*BN + BN) of the output, clipped
+    to (M, N).  The tile is the largest whose grid has at least one block
+    per SM (one wave), else the smallest; K does not enter (every tile
+    walks all of K)."""
+    for bm, bn in GEMM_TILES:
+        if -(-m // bm) * -(-n // bn) >= _build.NUM_SMS:
+            break
+    return bm, bn, -(-m // bm), -(-n // bn)
+
+
 @functools.cache
 def _lib():
     lib = _build.load("int8_gemm")
     fn = lib.int8_gemm_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     return fn
 
 
@@ -114,7 +131,8 @@ def int8_gemm(
     with torch.cuda.device(dev):
         rc = launch(x2.data_ptr(), w.data_ptr(), bias.data_ptr(), mult.data_ptr(),
                     shift.data_ptr(), out.data_ptr(), m, n, k, act,
-                    *_gelu_ints(act, s_preact, s_out), _build.stream_of(out))
+                    *_gelu_ints(act, s_preact, s_out), *gemm_grid(m, n),
+                    _build.stream_of(out))
     _build.check(rc, "int8_gemm")
     int8_gemm.launches += 1
     return out.reshape(*lead, n)

@@ -20,12 +20,58 @@ _LUTS: dict[torch.device, torch.Tensor] = {}
 
 
 def _luts(device: torch.device) -> torch.Tensor:
-    """The 7-bit exp LUT and the 10-bit renorm LUT, int32 [64] on ``device``."""
+    """The kernel's tables, int32 [96] on ``device``: the 7-bit exponential
+    at every t = m - l that int8 logits give (t in [0, 255], values in [0,
+    127]), four bytes to a word, then the 10-bit renorm LUT."""
     t = _LUTS.get(device)
     if t is None:
-        t = torch.cat([im.exp_lut7(), im.renorm_lut()]).to(device)
+        exp_t = im._exp2_int(torch.arange(256, dtype=torch.int32), im.exp_lut7(),
+                             im.EXP_LUT7_BITS)
+        words = exp_t.to(torch.uint8).view(torch.int32)
+        t = torch.cat([words, im.renorm_lut()]).to(device)
         _LUTS[device] = t
     return t
+
+
+#: the kernel's geometry (csrc/ita_attention.cu): keys per staged K/V
+#: sub-tile, output columns per block, the deepest sub-tile ring, and the
+#: dynamic shared bytes a block may take
+KV_SUBTILE, OUT_COLS, RING_SLOTS = 128, 64, 4
+SMEM_MAX = 227 * 1024 - 384
+
+
+def attn_smem(groups: int, block_k: int, d: int, slots: int) -> int:
+    """Dynamic shared bytes of a block of ``groups`` row groups with a ring
+    of ``slots`` sub-tiles (mirrors the kernel's ``make_layout``): the Q
+    tile, one int8 logits row of the padded KV block per query row, one
+    sub-tile of P per row group, the row max / row sum exchange, the ring."""
+    dp = -(-d // 32) * 32
+    bkp = -(-block_k // KV_SUBTILE) * KV_SUBTILE
+    rows = 16 * groups
+    return (rows * dp + rows * (bkp + 16) + rows * KV_SUBTILE + groups * 256
+            + slots * KV_SUBTILE * max(dp, OUT_COLS))
+
+
+def attn_grid(bh: int, sq: int, d: int, block_k: int) -> tuple[int, int, int, int, int]:
+    """(row groups per block, warps per row group, ring slots, grid_x,
+    grid_y) of a launch.  A row group is 16 query rows; block x computes
+    row groups [(x % T) * G, +G) of head x // T (T = ceil(Sq / 16G)), block
+    y output columns [64y, 64y + 64), clipped to (Sq, D).
+
+    A block has four warps.  Under eight 16-row tiles per SM, a row group
+    gets two of them, which split its keys and its output columns (more
+    warps to hide each other's latency, half the serial work each).  Wide
+    heads take fewer row groups, then a shallower ring, to fit the shared
+    memory."""
+    gy = -(-d // OUT_COLS)
+    tiles = -(-sq // 16)
+    split = 2 if bh * tiles * gy < 8 * _build.NUM_SMS else 1
+    for groups in range(min(4 // split, tiles), 0, -1):
+        for slots in range(RING_SLOTS, 1, -1):
+            if attn_smem(groups, block_k, d, slots) <= SMEM_MAX:
+                return groups, split, slots, bh * -(-sq // (16 * groups)), gy
+    raise ValueError(f"head_dim {d} with block_k {block_k} needs "
+                     f"{attn_smem(1, block_k, d, 2)} bytes of shared memory")
 
 
 @functools.cache
@@ -33,7 +79,7 @@ def _lib():
     lib = _build.load("ita_attention")
     fn = lib.ita_attention_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
     return fn
 
 
@@ -82,7 +128,8 @@ def ita_attention(
             q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), _luts(dev).data_ptr(), out.data_ptr(),
             b * h, sq, sk, d, h // hkv, int(p.logit_mult), int(p.logit_shift),
             int(p.out_mult), int(p.out_shift), int(causal), block_k,
-            sk if kv_valid is None else int(kv_valid), _build.stream_of(out),
+            sk if kv_valid is None else int(kv_valid), *attn_grid(b * h, sq, d, block_k),
+            _build.stream_of(out),
         )
     _build.check(rc, "ita_attention")
     ita_attention.launches += 1

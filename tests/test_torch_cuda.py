@@ -9,6 +9,9 @@ H100:
 This file imports no JAX, so it runs where only PyTorch is installed.
 """
 
+import importlib.util
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -17,11 +20,35 @@ from repro_torch.core.quant_linear import ACT_GELU, ACT_IDENTITY, ACT_RELU
 from repro_torch.deploy import api
 from repro_torch.kernels.igelu import igelu, igelu_ref
 from repro_torch.kernels.int8_gemm import int8_gemm
+from repro_torch.kernels.int8_gemm.ops import gemm_grid
 from repro_torch.kernels.ita_attention import ita_attention, ita_decode
+from repro_torch.kernels.ita_attention.ops import attn_grid
 from repro_torch.kernels.itamax import itamax, itamax_ref
 from repro_torch.quant.qparams import imatmul
 
 GEMM_KW = dict(s_in=0.02, s_w=0.005, s_out=0.05, s_preact=0.04)
+
+
+def _chip_smoke():
+    """chip_smoke.py at the repository root (its path shapes)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+#: (M, K, N, tile the wrapper picks): M, N and K one past and one short of
+#: each block tile and of the 64-deep K slice, K < 32, K and N whose rows
+#: are not 16-byte aligned, N < 8
+GEMM_EDGES = [
+    (1537, 65, 703, (128, 64)), (1535, 63, 705, (128, 64)),
+    (769, 127, 641, (64, 64)), (767, 129, 705, (64, 64)),
+    (1023, 129, 289, (64, 32)), (1025, 31, 287, (64, 32)),
+    (1025, 31, 127, (32, 32)), (1055, 33, 97, (32, 32)),
+    (65, 200, 33, (16, 32)), (15, 5, 31, (16, 32)), (17, 16, 5, (16, 32)),
+    (100, 200, 7, (16, 32)),
+]
 ATTN_KW = dict(s_q=0.02, s_k=0.02, s_v=0.02, s_out=0.02)
 
 
@@ -50,6 +77,70 @@ def test_int8_gemm_cuda_vs_plain(cuda_device, m, k, n, act):
     torch.cuda.synchronize()
     assert int8_gemm.launches == before + 1
     assert torch.equal(got.cpu(), int8_gemm(x, w, bias, **kw))
+
+
+def _gemm_check(device, m, k, n, act, seed, bias_lo=-1000, bias_hi=1000):
+    gen = torch.Generator().manual_seed(seed)
+    x, w = _ri8(gen, (m, k)), _ri8(gen, (k, n), lo=-127)
+    bias = torch.randint(bias_lo, bias_hi, (n,), generator=gen, dtype=torch.int32)
+    kw = dict(GEMM_KW, act=act)
+    before = int8_gemm.launches
+    got = int8_gemm(x.to(device), w.to(device), bias.to(device), **kw)
+    torch.cuda.synchronize()
+    assert int8_gemm.launches == before + 1
+    assert torch.equal(got.cpu(), int8_gemm(x, w, bias, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,tile", GEMM_EDGES)
+@pytest.mark.parametrize("act", [ACT_IDENTITY, ACT_GELU])
+def test_int8_gemm_cuda_tile_edges(cuda_device, m, k, n, tile, act):
+    assert gemm_grid(m, n)[:2] == tile
+    _gemm_check(cuda_device, m, k, n, act, seed=m * 7 + k * 3 + n)
+
+
+@pytest.mark.cuda
+def test_int8_gemm_cuda_every_path_shape(cuda_device):
+    for label, m, k, n, act in _chip_smoke().gemm_cases():
+        _gemm_check(cuda_device, m, k, n, act, seed=m + k + n)
+
+
+@pytest.mark.cuda
+def test_int8_gemm_cuda_int32_sum_wraps(cuda_device):
+    """A bias next to 2^31 makes x @ w + bias wrap; the kernel's int32
+    accumulator and epilogue wrap as the reference's do."""
+    _gemm_check(cuda_device, 256, 512, 128, ACT_IDENTITY, seed=31,
+                bias_lo=(1 << 31) - 4000, bias_hi=(1 << 31) - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,kv_valid,causal,block_k", [
+    (2, 4, 4, 1, 256, 64, None, False, 128),      # Sq 1 (a decode row)
+    (2, 4, 2, 3, 256, 64, 200, False, 128),       # Sq 3, GQA
+    (2, 4, 4, 17, 256, 64, None, True, 128),      # Sq 17, causal with Sq < Sk
+    (1, 2, 2, 1024, 1024, 64, 900, False, 512),   # kv_valid inside the last 512-key block
+    (2, 3, 3, 256, 256, 32, None, False, 128),    # D 32
+    (2, 3, 3, 256, 256, 128, 241, False, 128),    # D 128: two output-column blocks
+    (1, 2, 2, 100, 256, 64, None, True, 128),     # causal with Sq < Sk, ragged rows
+    (1, 2, 1, 60, 300, 36, 250, True, 100),       # D and block_k not multiples of 16
+    (1, 2, 2, 40, 160, 192, None, False, 32),     # D 192: Q k-steps past the registers
+    # enough 16-row tiles for one warp per tile (the cases above split a
+    # tile's keys between two warps)
+    (8, 8, 8, 512, 512, 64, 500, True, 128),
+    (8, 8, 8, 256, 256, 128, None, False, 64),
+    (8, 8, 4, 300, 300, 36, 250, True, 100),
+])
+def test_ita_attention_cuda_edges(cuda_device, b, h, hkv, sq, sk, d, kv_valid, causal, block_k):
+    split = attn_grid(b * h, sq, d, min(block_k, sk))[1]
+    assert split == (1 if b * h * -(-sq // 16) * -(-d // 64) >= 8 * 132 else 2)
+    gen = torch.Generator().manual_seed(sq * 13 + sk + d)
+    q, k, v = _ri8(gen, (b, h, sq, d)), _ri8(gen, (b, hkv, sk, d)), _ri8(gen, (b, hkv, sk, d))
+    kw = dict(ATTN_KW, causal=causal, block_k=block_k, kv_valid=kv_valid)
+    before = ita_attention.launches
+    got = ita_attention(q.to(cuda_device), k.to(cuda_device), v.to(cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert ita_attention.launches == before + 1
+    assert torch.equal(got.cpu(), ita_attention(q, k, v, **kw))
 
 
 @pytest.mark.cuda
