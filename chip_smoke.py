@@ -12,7 +12,8 @@ exit code and no result line):
    prints each kernel's registers and spills (-Xptxas -v); where the
    toolkit has cuobjdump, the SASS of int8_gemm and ita_attention must
    hold integer tensor-core instructions (IMMA for mma.sync, a GMMA form
-   for wgmma);
+   for wgmma), and each kernel function of itamax and igelu prints its
+   count of SASS instructions;
 3. kernels — each kernel, launched on the card at the shapes the main
    paths give it (plus ragged, multi-block, padded, GQA and causal cases),
    must equal its plain PyTorch version run on CPU copies of the same
@@ -21,7 +22,11 @@ exit code and no result line):
    and its plain version on the card per call.  int8_gemm and
    ita_attention print each shape's time beside the recorded time of the
    CUDA-core versions they replaced and, for the GEMM, torch._int_mm's
-   time in the same call.  The exact integer product
+   time in the same call; itamax and igelu print theirs beside the
+   recorded time of their first versions and beside their floor: the same
+   kernel timed the same way on one row of one element (itamax) or on 16
+   elements (igelu), which tells a kernel bound by its launch from one
+   that is still slow.  The exact integer product
    of the plain path (``quant.qparams.imatmul`` on CUDA: ``torch._int_mm``
    or float64) must equal the CPU's int32 product, a wrapping case included;
 4. slice  — compile(cfg, backend) -> session(8) -> forward on the card, for
@@ -142,10 +147,20 @@ CUDA_CORE_ATTN_MS = {"mobilebert": 0.0193, "whisper-tiny-encoder": 0.1847,
                 "dinov2-small": 0.0529, "gqa-group2": 0.0527, "causal": 0.0407}
 
 
-def vs_cuda_core(ms: float, old: float | None) -> str:
+#: device ms of the first CUDA versions of itamax (one warp per row, the
+#: exponential evaluated per element) and igelu (the polynomial and the
+#: requant per element), this script on an NVIDIA H100 80GB HBM3 at 700 W
+#: (PERF.md §6): by case label
+ITAMAX_WARP_PER_ROW_MS = {"mobilebert": 0.0033, "whisper-tiny-encoder": 0.0278,
+                          "dinov2-small": 0.0124}
+IGELU_PER_ELEMENT_MS = {"deit-ti-widths": 0.0032}
+
+
+def vs_old(what: str, ms: float, old: float | None) -> str:
+    """A time beside the recorded time of the version it replaced."""
     if old is None:
-        return "CUDA-core version: not recorded"
-    return f"CUDA-core version {old:.4f} ms ({old / ms:.2f}x)"
+        return f"{what}: not recorded"
+    return f"{what} {old:.4f} ms ({old / ms:.2f}x)"
 
 
 def tensor_core_sass(build) -> None:
@@ -153,13 +168,9 @@ def tensor_core_sass(build) -> None:
     tensor-core kernels' libraries; each must hold some.  Skipped (and
     said so) where the toolkit has no cuobjdump."""
     import re
-    import shutil
 
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    tool = shutil.which("cuobjdump") or (
-        str(Path(CUDA_HOME) / "bin" / "cuobjdump") if CUDA_HOME else None)
-    if not tool or not Path(tool).exists():
+    tool = _cuobjdump()
+    if tool is None:
         log("  cuobjdump not found: the SASS is not inspected")
         return
     for name in ("int8_gemm", "ita_attention"):
@@ -170,6 +181,44 @@ def tensor_core_sass(build) -> None:
         log(f"  {name}: {len(ops)} integer tensor-core instructions in the SASS "
             f"({', '.join(kinds[:4])})")
         require(len(ops) > 0, f"{name}: no IMMA/GMMA instruction in its SASS")
+
+
+def _cuobjdump():
+    import shutil
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump") or (
+        str(Path(CUDA_HOME) / "bin" / "cuobjdump") if CUDA_HOME else None)
+    return tool if tool and Path(tool).exists() else None
+
+
+def pointwise_sass(build) -> None:
+    """Count the SASS instructions of each kernel function in the itamax
+    and igelu libraries (one line per instruction in cuobjdump's listing).
+    Skipped (and said so) where the toolkit has no cuobjdump."""
+    import re
+
+    tool = _cuobjdump()
+    if tool is None:
+        log("  cuobjdump not found: the SASS is not counted")
+        return
+    for name in ("itamax", "igelu"):
+        sass = subprocess.run([tool, "-sass", str(build._lib_path(name))], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            head = re.match(r"\s*Function : (\S+)", line)
+            if head:
+                fn = head.group(1)
+                counts[fn] = 0
+            elif fn and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+[A-Z@]", line):
+                counts[fn] += 1
+        require(bool(counts), f"{name}: no kernel function in its SASS")
+        for fn, c in counts.items():
+            tag = re.search(r"ILi(\d+)E", fn)
+            log(f"  {name}: {c} SASS instructions in {fn[:48]}"
+                f"{f' (template {tag.group(1)})' if tag else ''}")
 
 
 def max_abs_err(got, want) -> float:
@@ -249,6 +298,40 @@ def rows_bytes(n_elem: int) -> tuple[int, int]:
     return 2 * n_elem, 0
 
 
+def itamax_shapes(torch, gen, dev) -> None:
+    """The launch shape that ``itamax_grid`` picks at each path shape,
+    timed beside half and twice its lanes a row (the raw launch, outside
+    the wrapper's count), each checked against the plain version."""
+    from repro_torch.kernels.itamax import itamax_ref, ops
+
+    launch, lut = ops._lib(), ops._lut(dev)
+    for label, r, n in ITAMAX_CASES:
+        if label == "ragged":
+            continue
+        x = torch.randint(-128, 128, (r, n), generator=gen, dtype=torch.int8)
+        want = itamax_ref(x)
+        xd = x.to(dev)
+        out = torch.empty_like(xd)
+        lanes0 = ops.itamax_grid(r, n)[1]
+        times = []
+        for lanes in (lanes0 // 2, lanes0, lanes0 * 2):
+            if not 1 <= lanes <= 32 or -(-ops._chunks_spanned(n) // lanes) > ops.MAX_CH:
+                continue
+            smem = ops.itamax_smem(n, lanes)
+            rpb = ops.itamax_rows_per_block(r, n, lanes)
+
+            def run(rpb=rpb, lanes=lanes, smem=smem):  # on the stream current at the call
+                return launch(xd.data_ptr(), lut.data_ptr(), out.data_ptr(), r, n, rpb, lanes,
+                              smem, torch.cuda.current_stream(dev).cuda_stream)
+
+            require(run() == 0, f"itamax {label} lanes={lanes}: launch failed")
+            torch.cuda.synchronize()
+            require(torch.equal(out.cpu(), want), f"itamax {label} lanes={lanes} != plain")
+            ms = device_ms(run)
+            times.append(f"{lanes} lanes a row {ms:.4f} ms{' (chosen)' if lanes == lanes0 else ''}")
+        log(f"  itamax {label:22s} R={r:6d} n={n:4d}: equal at each shape; " + ", ".join(times))
+
+
 def exact_product_phase(torch, gen, dev) -> None:
     """``imatmul`` on CUDA tensors against the CPU's int32 product (the
     exact product in int64, wrapped to int32) at the plain path's shapes."""
@@ -282,11 +365,13 @@ def exact_product_phase(torch, gen, dev) -> None:
 
 def kernel_phase(torch, gen, dev) -> list[dict]:
     from repro_torch.kernels.igelu import igelu, igelu_ref
+    from repro_torch.kernels.igelu.ops import igelu_grid
     from repro_torch.kernels.int8_gemm import int8_gemm, int8_gemm_ref
     from repro_torch.kernels.int8_gemm.ops import gemm_grid
     from repro_torch.kernels.ita_attention import ita_attention, ita_attention_ref
     from repro_torch.kernels.ita_attention.ops import attn_grid
     from repro_torch.kernels.itamax import itamax, itamax_ref
+    from repro_torch.kernels.itamax.ops import itamax_grid
 
     def ri8(*shape):
         return torch.randint(-128, 128, shape, generator=gen, dtype=torch.int8)
@@ -315,7 +400,7 @@ def kernel_phase(torch, gen, dev) -> list[dict]:
         bm, bn, gx, gy = gemm_grid(m, n)
         log(f"  int8_gemm {label:22s} M={m:5d} K={k:5d} N={n:5d} act={act}: equal; "
             f"device {ms:.4f} ms (per call with dispatch {per_call:.4f} ms), "
-            f"{vs_cuda_core(ms, CUDA_CORE_GEMM_MS.get((label, k, n)))}, _int_mm "
+            f"{vs_old('CUDA-core version', ms, CUDA_CORE_GEMM_MS.get((label, k, n)))}, _int_mm "
             f"{'n/a' if lib is None else f'{lib:.4f} ms ({lib / ms:.2f}x)'}, bound "
             f"{bnd:.5f} ms ({by}); tile {bm}x{bn}, {gx * gy} blocks")
         if label == "mobilebert":
@@ -334,7 +419,7 @@ def kernel_phase(torch, gen, dev) -> list[dict]:
         g_bytes, g_ops = g_bytes + b_, g_ops + o_
     g_bound, g_by = bound_ms(g_bytes, g_ops)
     log(f"  int8_gemm one MobileBERT layer (6 launches): {gemm_ms:.4f} ms, "
-        f"{vs_cuda_core(gemm_ms, CUDA_CORE_GEMM_LAYER_MS)}, _int_mm {lib_ms:.4f} ms "
+        f"{vs_old('CUDA-core version', gemm_ms, CUDA_CORE_GEMM_LAYER_MS)}, _int_mm {lib_ms:.4f} ms "
         f"({lib_ms / gemm_ms:.2f}x), bound {g_bound:.5f} ms ({g_by})")
 
     # -- ita_attention: correctness on every case
@@ -352,9 +437,10 @@ def kernel_phase(torch, gen, dev) -> list[dict]:
         per_call = call_ms(lambda: ita_attention(qd, kd, vd, **kw), reps=20)
         bnd, by = bound_ms(*attn_bytes_ops(b * h, b * hkv, s, d, kv_valid, causal))
         w, split, _, gx, gy = attn_grid(b * h, s, d, 128)
+        old = vs_old("CUDA-core version", ms, CUDA_CORE_ATTN_MS.get(label))
         log(f"  ita_attention {label:22s} BH={b * h:3d} S={s:4d} D={d} kv_valid={kv_valid} "
             f"causal={causal} group={h // hkv}: equal; device {ms:.4f} ms (per call with "
-            f"dispatch {per_call:.4f} ms), {vs_cuda_core(ms, CUDA_CORE_ATTN_MS.get(label))}, bound "
+            f"dispatch {per_call:.4f} ms), {old}, bound "
             f"{bnd:.5f} ms ({by}); {w * split} warps a block ({split} per 16 rows), "
             f"{gx * gy} blocks")
         if label == "mobilebert":
@@ -371,6 +457,9 @@ def kernel_phase(torch, gen, dev) -> list[dict]:
     # entry and all -128 logits first), then the timings
     m_err = 0.0
     itamax_mb = None
+    one = torch.zeros((1, 1), dtype=torch.int8, device=dev)
+    m_floor = device_ms(lambda: itamax(one))
+    log(f"  itamax floor (one row of one element): device {m_floor:.4f} ms")
     for label, r, n in ITAMAX_CASES:
         x = ri8(r, n)
         x[0] = 17
@@ -387,15 +476,24 @@ def kernel_phase(torch, gen, dev) -> list[dict]:
         per_call = call_ms(lambda: itamax(xd), reps=20)
         plain = call_ms(lambda: itamax_ref(xd), reps=10)
         bnd, by = bound_ms(*rows_bytes(r * n))
+        rpb, lanes, smem = itamax_grid(r, n)
+        old = vs_old("first version", ms, ITAMAX_WARP_PER_ROW_MS.get(label))
         log(f"  itamax {label:22s} R={r:6d} n={n:4d}: equal; device {ms:.4f} ms (per call "
-            f"with dispatch {per_call:.4f} ms), plain on the card {plain:.4f} ms, bound "
-            f"{bnd:.5f} ms ({by})")
+            f"with dispatch {per_call:.4f} ms), {old}, "
+            f"floor {m_floor:.4f} ms (+{(ms - m_floor) * 1e3:.2f} us), plain on the card "
+            f"{plain:.4f} ms, bound {bnd:.5f} ms ({by}); {lanes} lanes a row, {rpb} rows a "
+            f"block, {-(-r // rpb)} blocks, {smem} shared bytes")
         if label == "mobilebert":
             itamax_mb = (ms, plain, bnd, by)
+
+    itamax_shapes(torch, gen, dev)
 
     # -- igelu: correctness on every case (every int8 value first), timings
     e_err = 0.0
     igelu_deit = None
+    sixteen = torch.zeros((16,), dtype=torch.int8, device=dev)
+    e_floor = device_ms(lambda: igelu(sixteen, **S_GELU))
+    log(f"  igelu floor (16 elements): device {e_floor:.4f} ms")
     for label, shape in IGELU_CASES:
         x = ri8(*shape)
         x.view(-1)[:256] = torch.arange(-128, 128, dtype=torch.int8)
@@ -409,9 +507,13 @@ def kernel_phase(torch, gen, dev) -> list[dict]:
         per_call = call_ms(lambda: igelu(xd, **S_GELU), reps=20)
         plain = call_ms(lambda: igelu_ref(xd, **S_GELU), reps=10)
         bnd, by = bound_ms(*rows_bytes(x.numel()))
+        blocks, wpt = igelu_grid(x.numel())
+        old = vs_old("first version", ms, IGELU_PER_ELEMENT_MS.get(label))
         log(f"  igelu {label:22s} {str(shape):16s}: equal; device "
-            f"{ms:.4f} ms (per call with dispatch {per_call:.4f} ms), plain on the card "
-            f"{plain:.4f} ms, bound {bnd:.5f} ms ({by})")
+            f"{ms:.4f} ms (per call with dispatch {per_call:.4f} ms), {old}, floor "
+            f"{e_floor:.4f} ms "
+            f"(+{(ms - e_floor) * 1e3:.2f} us), plain on the card {plain:.4f} ms, bound "
+            f"{bnd:.5f} ms ({by}); {blocks} blocks of {wpt} words a thread")
         if label == "deit-ti-widths":
             igelu_deit = (ms, plain, bnd, by)
 
@@ -548,6 +650,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {name}: {line.strip()}")
     tensor_core_sass(_build)
+    pointwise_sass(_build)
 
     gen = torch.Generator().manual_seed(SEED)
     log("[kernels] the plain path's integer product against the CPU's int32 product")

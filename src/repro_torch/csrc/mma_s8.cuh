@@ -25,7 +25,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// 16-byte async copy; bytes past src_bytes (0 or 16 here) are zero-filled.
+// 16-byte async copy; bytes past src_bytes (0 to 16) are zero-filled.
 // `src` must be a valid 16-byte-aligned address even when src_bytes is 0.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),

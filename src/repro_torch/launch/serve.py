@@ -13,7 +13,8 @@ kernel).  The summary line names the kernels the forwards launched, with
 their launches per forward.  ``--device cpu`` runs the plain PyTorch
 versions on the CPU instead.
 ``--profile`` adds one traced batch after the timed loop and prints the
-device time by kernel (``torch.profiler``) and the device's busy share of
+device time by kernel (``torch.profiler``: the top kernels, then the
+port's own kernels wherever they rank) and the device's busy share of
 the untraced loop's mean forward time; the timed loop itself runs
 untraced.
 """
@@ -70,8 +71,11 @@ def profile_forward(session, batch: torch.Tensor, top: int = 12) -> dict:
     launches = sum(e.count for e in kernels)
     print(f"profile: traced wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
           f"{launches} device kernels")
-    for e in kernels[:top]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+    # the top kernels, then the port's own kernels wherever they rank
+    own = ("int8_gemm", "ita_attention", "igelu_kernel", "itamax_kernel")
+    for i, e in enumerate(kernels):
+        if i < top or any(k in e.key for k in own):
+            print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_kernels": launches}
 

@@ -24,6 +24,7 @@ from repro_torch.kernels.int8_gemm.ops import gemm_grid
 from repro_torch.kernels.ita_attention import ita_attention, ita_decode
 from repro_torch.kernels.ita_attention.ops import attn_grid
 from repro_torch.kernels.itamax import itamax, itamax_ref
+from repro_torch.kernels.itamax.ops import itamax_grid
 from repro_torch.quant.qparams import imatmul
 
 GEMM_KW = dict(s_in=0.02, s_w=0.005, s_out=0.05, s_preact=0.04)
@@ -210,6 +211,72 @@ def test_itamax_cuda_refuses_a_mask(cuda_device):
         itamax(x, mask=torch.ones((4, 8), dtype=torch.bool, device=cuda_device))
     with pytest.raises(TypeError):
         itamax(x.to(torch.int32))
+
+
+#: row lengths of the itamax edge cases: one to three bytes, one short of,
+#: at and one past a 16-byte chunk, odd rows, the three encoders' rows, one
+#: past a warp's 32 chunks, the longest row a warp holds, the longest row
+ITAMAX_EDGE_N = [1, 2, 3, 15, 16, 17, 77, 128, 241, 512, 513, 4096, 1 << 15]
+#: R of the three encoders' w8a8 softmax at batch 8, by row length
+ITAMAX_PATH_R = {128: 8 * 4 * 128, 241: 8 * 6 * 241, 512: 8 * 6 * 512}
+
+
+def _itamax_edge_rows(n):
+    """1, 7, a count of several blocks that is not a multiple of the rows
+    per block (when that is more than one), and the path's R."""
+    ragged = next(r for r in range(2 * itamax_grid(1, n)[0] + 5, 1 << 20, 7)
+                  if r % itamax_grid(r, n)[0] or itamax_grid(r, n)[0] == 1)
+    rows = [1, 7, ragged] + ([ITAMAX_PATH_R[n]] if n in ITAMAX_PATH_R else [])
+    return list(dict.fromkeys(rows))
+
+
+#: (R, n) past one wave of blocks: several staging steps a block, the last
+#: block's last step short
+ITAMAX_MULTI_STEP = [(200003, 77), (100001, 241)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n", [(r, n) for n in ITAMAX_EDGE_N for r in _itamax_edge_rows(n)]
+                         + ITAMAX_MULTI_STEP)
+def test_itamax_cuda_edges(cuda_device, r, n):
+    """Every staging and segment case of the kernel: rows that start
+    anywhere in a chunk, rows of 1..L lanes and of a whole block, a last
+    block and a last step that are short.  Row 0 has t = 255 (-128 beside
+    127), row 1 is all equal, row 2 all -128."""
+    gen = torch.Generator().manual_seed(7 * r + n)
+    x = _ri8(gen, (r, n))
+    x[0] = -128
+    x[0, (n - 1) // 2] = 127
+    if r > 2:
+        x[1], x[2] = 31, -128
+    before = itamax.launches
+    got = itamax(x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert itamax.launches == before + 1
+    assert torch.equal(got.cpu(), itamax_ref(x))
+
+
+#: (in_scale, out_scale) of the igelu edge cases: each builds another table
+IGELU_SCALES = [(0.04, 0.05), (0.01, 0.003), (0.2, 0.5)]
+#: element counts: under, at and past one 16-byte word, every int8 value,
+#: the DeiT-Ti-width path, and past the grid's cap (the grid-stride loop wraps)
+IGELU_SIZES = [1, 15, 16, 17, 256, 8 * 197 * 768, 2 * 132 * 8 * 256 * 3 * 16 + 7]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scales", IGELU_SCALES)
+@pytest.mark.parametrize("size", IGELU_SIZES)
+def test_igelu_cuda_every_value(cuda_device, scales, size):
+    x = ((torch.arange(size, dtype=torch.int32) * 97 + size) % 256 - 128).to(torch.int8)
+    if size >= 256:
+        x[:256] = torch.arange(-128, 128, dtype=torch.int8)
+        assert x.unique().numel() == 256
+    kw = dict(in_scale=scales[0], out_scale=scales[1])
+    before = igelu.launches
+    got = igelu(x.to(cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert igelu.launches == before + 1
+    assert torch.equal(got.cpu(), igelu_ref(x, **kw))
 
 
 @pytest.mark.cuda

@@ -117,6 +117,24 @@ def test_itamax_plain_vs_oracle_at_path_rows(shape):
     assert np.array_equal(itamax(_t(x)).numpy(), want)
 
 
+def test_itamax_weight_table_is_the_reference_exponential():
+    """The kernel tabulates W[t] = exp2_lut(lut, t) for t = m - x, which
+    int8 logits keep in [0, 255], from the LUT its wrapper passes.  Worked
+    out as ``csrc/int_arith.cuh exp2_lut`` does, every entry equals the JAX
+    package's exponential at the t (clipped to 2^20) the reference uses."""
+    from repro.core import itamax as j_im
+    from repro_torch.kernels.itamax import ops
+
+    lut = ops._lut(torch.device("cpu")).numpy()
+    t = np.arange(256)
+    q = np.minimum(t >> 5, 31)
+    table = (lut[t & 31] + np.where(q > 0, 1 << np.maximum(q - 1, 0), 0)) >> q
+    x = np.arange(-128, 128)  # beside the max 127, t = 127 - x covers [0, 255]
+    t_ref = jnp.clip(127 - jnp.asarray(x, jnp.int32), 0, 1 << 20)
+    want = np.asarray(j_im._exp2_int(t_ref, j_im.exp_lut(), j_im.EXP_LUT_BITS))
+    assert np.array_equal(table[127 - x], want)
+
+
 def test_itamax_mask_on_cpu_tensors():
     """On CPU tensors the wrapper takes a mask (the plain version does)."""
     rng = np.random.default_rng(3)

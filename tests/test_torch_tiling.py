@@ -109,3 +109,143 @@ def test_attention_grid_fits_wide_heads_and_refuses_what_does_not_fit():
     assert (groups, slots) == (1, 2)  # a shallower ring for a wide head
     with pytest.raises(ValueError, match="shared memory"):
         attn_grid(1, 16, 2048, 512)
+
+
+# ---------------------------------------------------------------------------
+# itamax and igelu: the pointwise kernels' launch shapes
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.igelu.ops import NT as IGELU_NT  # noqa: E402
+from repro_torch.kernels.igelu.ops import igelu_grid  # noqa: E402
+from repro_torch.kernels.itamax.ops import (  # noqa: E402
+    MAX_CH, MAX_ROW, NT, SMEM_MAX as ITAMAX_SMEM_MAX, _chunks_spanned, itamax_grid,
+    itamax_smem,
+)
+
+#: (R, n): the three encoders' w8a8 softmax at batch 8, and rows that are
+#: short, odd, one past a chunk, one past a warp's 32 chunks, the longest
+#: a warp holds and the longest there is, over 1, 7 and 300 rows
+PATH_ITAMAX = [(r, n) for _, r, n in SMOKE.ITAMAX_CASES]
+RAGGED_ITAMAX = [(r, n) for n in (1, 2, 3, 15, 16, 17, 77, 128, 241, 512, 513, 4096, 4097,
+                                  MAX_ROW - 1, MAX_ROW)
+                 for r in (1, 7, 300)]
+#: past one wave of blocks: several staging steps a block, the last short
+MULTI_STEP_ITAMAX = [(200003, 77), (100001, 241)]
+
+
+def _itamax_stores(r, n):
+    """Where the kernel (csrc/itamax.cu) puts each row's bytes: for every
+    block, step, row segment and chunk slot, the bytes [lo, hi) of the
+    chunk that the slot loads and stores, as positions in the tensor.
+    Returns how often each byte is stored and the row that stored it."""
+    rpb, lanes, smem = itamax_grid(r, n)
+    g_rows = NT // lanes
+    ch = -(-_chunks_spanned(n) // lanes)
+    stage = (smem - 256 * 32 * 4) // 2
+    count = np.zeros(r * n, np.int32)
+    owner = np.full(r * n, -1, np.int64)
+    seg = np.arange(g_rows)[:, None, None]
+    j = np.arange(lanes)[None, :, None]
+    k = np.arange(ch)[None, None, :]
+    e = np.arange(16)
+    for b in range(-(-r // rpb)):
+        row0, rows = b * rpb, min(rpb, r - b * rpb)
+        cbase, skew = (row0 * n) >> 4, (row0 * n) & 15
+        for s in range(-(-rows // g_rows)):
+            b0 = skew + s * g_rows * n
+            b1 = skew + min((s + 1) * g_rows, rows) * n
+            assert 16 * ((b1 + 15) // 16 - b0 // 16) <= stage  # the staged chunks fit
+            live = seg < min(g_rows, rows - s * g_rows)
+            rs = (b0 & 15) + seg * n
+            c = (rs >> 4) + j + k * lanes
+            lo = np.maximum(rs - 16 * c, 0)
+            hi = np.where(live, np.minimum(rs + n - 16 * c, 16), 0)
+            keep = (e >= lo[..., None]) & (e < hi[..., None])
+            assert (16 * c + 16 <= stage)[hi > lo].all()
+            pos = cbase * 16 + (b0 >> 4) * 16 + 16 * c[..., None] + e
+            row = np.broadcast_to(row0 + s * g_rows + seg[..., None], pos.shape)
+            np.add.at(count, pos[keep], 1)
+            owner[pos[keep]] = row[keep]
+    return count, owner
+
+
+@pytest.mark.parametrize("r,n", PATH_ITAMAX + RAGGED_ITAMAX + MULTI_STEP_ITAMAX)
+def test_itamax_blocks_store_every_byte_once(r, n):
+    count, owner = _itamax_stores(r, n)
+    assert (count == 1).all()
+    assert (owner == np.arange(r * n) // n).all()  # each byte by the segment of its row
+
+
+@pytest.mark.parametrize("r,n", PATH_ITAMAX + RAGGED_ITAMAX + MULTI_STEP_ITAMAX)
+def test_itamax_blocks_start_aligned_and_fit(r, n):
+    rpb, lanes, smem = itamax_grid(r, n)
+    blocks = -(-r // rpb)
+    assert (blocks - 1) * rpb < r  # no block lies wholly outside
+    assert all(b * rpb * n % 16 == 0 for b in range(blocks - 1))
+    assert rpb % (NT // lanes) == 0 and rpb * n <= 1 << 30
+    assert lanes == NT or (lanes <= 32 and 32 % lanes == 0)
+    assert 1 <= -(-_chunks_spanned(n) // lanes) <= MAX_CH
+    assert smem == itamax_smem(n, lanes) <= ITAMAX_SMEM_MAX
+
+
+@pytest.mark.parametrize("first", range(1, MAX_ROW + 1, 4096))
+def test_itamax_shared_memory_fits_every_row_length(first):
+    for n in range(first, first + 4096):
+        for r in (1, 1000, 1 << 20):
+            rpb, lanes, smem = itamax_grid(r, n)
+            assert smem <= 232448
+            assert lanes == NT or 32 % lanes == 0
+
+
+@pytest.mark.parametrize("n", [0, MAX_ROW + 1])
+def test_itamax_grid_refuses_rows_it_cannot_take(n):
+    with pytest.raises(ValueError, match="rows of"):
+        itamax_grid(8, n)
+
+
+def test_itamax_grid_on_the_path():
+    """Fewer lanes a row (more chunks a lane) where the rows still give
+    every SM a step; MobileBERT's 4096 short rows keep 8 lanes a row."""
+    assert itamax_grid(4096, 128)[1] == 8
+    assert itamax_grid(24576, 512)[1] == 8
+    assert itamax_grid(11568, 241)[1] == 4
+    assert itamax_grid(3, 1 << 15)[1] == NT  # a row takes the whole block
+    for r, n in MULTI_STEP_ITAMAX:  # several steps a block, the last block short
+        rpb, lanes, _ = itamax_grid(r, n)
+        assert rpb >= 3 * (NT // lanes) and r % rpb
+
+
+#: element counts: under, at and past one 16-byte word, the DeiT-Ti-width
+#: path, ragged sizes, and sizes that take the grid-stride loop past one round
+IGELU_COUNTS = [0, 1, 15, 16, 17, 255, 4096, 5061, 8 * 197 * 768, 8 * 197 * 768 + 9,
+                2 * 132 * 8 * 256 * 3 * 16 + 7]
+
+
+@pytest.mark.parametrize("n", IGELU_COUNTS)
+def test_igelu_grid_maps_every_element_once(n):
+    """Mirrors csrc/igelu.cu: thread t of T maps words t + k T of each round
+    of wpt T words, then elements n_vec 16 + t + i T of the tail."""
+    blocks, wpt = igelu_grid(n)
+    assert blocks >= 1 and 1 <= wpt <= 3
+    assert blocks <= _build.NUM_SMS * (2048 // IGELU_NT)
+    threads = blocks * IGELU_NT
+    n_vec = n // 16
+    count = np.zeros(n_vec, np.int32)
+    t = np.arange(threads)
+    for base in range(0, n_vec, wpt * threads):
+        for k in range(wpt):
+            w = base + t + k * threads
+            np.add.at(count, w[w < n_vec], 1)
+    assert (count == 1).all()
+    tail = np.zeros(n - 16 * n_vec, np.int32)
+    for i in range(16 * n_vec, n, threads):
+        idx = i + t
+        np.add.at(tail, idx[idx < n] - 16 * n_vec, 1)
+    assert (tail == 1).all()
+
+
+def test_igelu_grid_on_the_path():
+    """The DeiT-Ti-width GELU: one block per SM, every load in one round."""
+    blocks, wpt = igelu_grid(8 * 197 * 768)
+    assert blocks == _build.NUM_SMS
+    assert blocks * IGELU_NT * wpt >= 8 * 197 * 768 // 16
