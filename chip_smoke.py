@@ -41,7 +41,19 @@ exit code and no result line):
    random weights from seed 0, batch 8.  The launch counters, set to 0
    just before the timed forwards, must grow by exactly the plan's kernel
    calls, and the output must equal, bit for bit, the same session's
-   forward on the CPU.
+   forward on the CPU;
+5. decoder — OLMo-1B at its full published width and depth (16 layers,
+   d_model 2048, 16 heads of 128, d_ff 8192, vocab 50304): compile(seq_len
+   128, max_len 160) -> session(8) -> one prefill and 16 greedy decode
+   steps, on ``ita`` and ``w8a8``, with one set of weights (seed 0) for
+   every session.  int8_gemm must launch exactly 112 times per ``ita``
+   prefill (7 GEMMs a layer) and no kernel at all per decode step; the
+   two backends' logits and KV caches must be equal at every step, and
+   equal to the port's own prefill_w8a8 / decode_step_w8a8 chain on the
+   card.  A short prompt (seq_len 32, max_len 40, batch 2, 3 decode steps)
+   checks the card against the CPU at full width and depth, and the
+   prefill time, the time per decode step and the generated tokens per
+   second print per backend.
 
 It prints the kernels line (JSON), the nvidia-smi line, and last the
 contract line {"ok": true, "device": {...}}.  It exits non-zero, printing
@@ -235,8 +247,9 @@ def require(cond: bool, what: str) -> None:
 # kernel phase
 # ---------------------------------------------------------------------------
 
-#: (M, K, N, act) of every int8_gemm call on the three encoders' paths at
-#: batch 8 (M padded to the 128-row granule), plus a ragged case
+#: (M, K, N, act) of every int8_gemm call on the three encoders' paths and
+#: OLMo-1B's prefill at batch 8 (M padded to the 128-row granule), plus a
+#: ragged case
 def gemm_cases():
     from repro_torch.core.quant_linear import ACT_GELU, ACT_IDENTITY, ACT_RELU
 
@@ -247,7 +260,13 @@ def gemm_cases():
     cases += [("whisper-tiny-encoder", 4096, k, n, a) for k, n, a in wide]
     cases += [("dinov2-small", 2048, k, n, a) for k, n, a in wide]
     cases += [("ragged", 1000, 200, 300, ACT_RELU)]
+    # OLMo-1B's prefill at batch 8 x 128 tokens: Q/K/V/O, gate/up, down
+    cases += [("olmo-1b", 1024, k, n, ACT_IDENTITY) for k, n in OLMO_GEMM_KN]
     return cases
+
+
+#: (K, N) of OLMo-1B's prefill GEMMs (d_model 2048, d_ff 8192)
+OLMO_GEMM_KN = [(2048, 2048), (2048, 8192), (8192, 2048)]
 
 
 #: (label, B, H, Hkv, S, D, kv_valid, causal) of the ita_attention checks
@@ -625,6 +644,145 @@ def slice_phase(torch, card: str, dev) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# decoder phase
+# ---------------------------------------------------------------------------
+
+#: OLMo-1B on the card: the pair's prompt length and KV rows, the batch
+#: and the greedy decode steps; and the short prompt of the CPU check
+DECODER = dict(seq_len=128, max_len=160, batch=8, steps=16)
+DECODER_CPU = dict(seq_len=32, max_len=40, batch=2, steps=3)
+
+
+def _greedy(torch, logits):
+    return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+
+def _on(qp, dev):
+    if isinstance(qp, dict):
+        return {k: _on(v, dev) for k, v in qp.items()}
+    if isinstance(qp, list):
+        return [_on(v, dev) for v in qp]
+    return qp.to(dev)
+
+
+def decoder_phase(torch, card: str, dev) -> dict[str, int]:
+    """OLMo-1B at full width on both backends, against each other, the
+    model chain on the card and (short prompt) the CPU."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.deploy import api
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("olmo-1b")
+    wrappers = kernels.wrappers()
+    launches = dict.fromkeys(wrappers, 0)
+    seq, cap, batch, steps = (DECODER[k] for k in ("seq_len", "max_len", "batch", "steps"))
+    models = {be: api.compile(cfg, backend=be, seq_len=seq, max_len=cap, use_cache=False)
+              for be in ("ita", "w8a8")}
+    t0 = time.perf_counter()
+    _, qp = models["ita"].bind(seed=SEED)  # one draw for every session
+    log(f"  weights drawn and quantized (seed {SEED}) in {time.perf_counter() - t0:.1f}s")
+    # the card by default: the device is named only when it is not
+    on_card = None if dev.type == "cuda" else dev
+    sessions = {be: m.session(batch, qp=qp, device=on_card) for be, m in models.items()}
+    for be, sess in sessions.items():
+        require(sess.device == dev, f"{be} session on {sess.device}, not {dev}")
+    gemm_per_prefill = sum(n.kind == "gemm" and n.engine == "ita"
+                           for n in models["ita"].artifact.prefill.flat_nodes())
+    require(gemm_per_prefill == 7 * cfg.n_layers, f"{gemm_per_prefill} ita GEMMs a prefill")
+    gen = torch.Generator().manual_seed(SEED)
+    prompts = torch.randint(0, cfg.vocab, (batch, seq), generator=gen, dtype=torch.int32)
+    prompts = prompts.to(dev)
+    for sess in sessions.values():  # warm-up: cuBLAS handles, RoPE tables, scale caches
+        sess.decode(_greedy(torch, sess.prefill(prompts)))
+    qp_dev = _on(qp, dev)
+    torch.cuda.synchronize()
+
+    def timed(fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t)
+
+    def count(be, what, want_gemm):
+        got = {name: w.launches for name, w in wrappers.items()}
+        want = {name: want_gemm if name == "int8_gemm" else 0 for name in wrappers}
+        require(got == want, f"{be} {what}: launches {got}, expected {want}")
+        for name, n in got.items():
+            launches[name] += n
+        for w in wrappers.values():
+            w.launches = 0
+
+    def same(a, b, what):
+        require(a.shape == b.shape and torch.equal(a, b), f"decoder {what} differ")
+
+    ms = {be: {"prefill": 0.0, "decode": []} for be in sessions}
+    for w in wrappers.values():
+        w.launches = 0
+    logits = {}
+    for be, sess in sessions.items():
+        logits[be], ms[be]["prefill"] = timed(lambda sess=sess: sess.prefill(prompts))
+        count(be, "prefill", gemm_per_prefill if be == "ita" else 0)
+    ref_logits, ref_cache = T.prefill_w8a8(cfg, qp_dev, {"tokens": prompts}, cap)
+    for step in range(steps + 1):
+        kv = {be: sess.kv_cache for be, sess in sessions.items()}
+        same(logits["ita"], logits["w8a8"], f"ita and w8a8 logits at step {step}")
+        same(logits["w8a8"], ref_logits, f"session and model-chain logits at step {step}")
+        for part in ("k", "v"):
+            same(kv["ita"][part], kv["w8a8"][part], f"ita and w8a8 {part} caches, step {step}")
+            same(kv["w8a8"][part], ref_cache[part], f"session and model {part}, step {step}")
+        require(bool(torch.isfinite(ref_logits).all()), f"non-finite logits at step {step}")
+        if step == steps:
+            break
+        tok = _greedy(torch, ref_logits)
+        for be, sess in sessions.items():
+            logits[be], t_ms = timed(lambda sess=sess: sess.decode(tok))
+            ms[be]["decode"].append(t_ms)
+            count(be, f"decode step {step}", 0)
+        ref_logits, ref_cache = T.decode_step_w8a8(cfg, qp_dev, ref_cache, tok[:, None])
+    require(tuple(ref_logits.shape) == (batch, 1, cfg.vocab_padded),
+            f"logits {tuple(ref_logits.shape)}")
+    for be, m in ms.items():
+        dec = m["decode"]
+        counts = models[be].counts()
+        log(f"  [decoder] olmo-1b ({be}): plan nodes prefill {counts['prefill']['nodes']} "
+            f"({counts['prefill']['ita']} ita), decode {counts['decode']['nodes']}; int8_gemm "
+            f"{gemm_per_prefill if be == 'ita' else 0} launches a prefill, no kernel a decode "
+            f"step; prefill {batch}x{seq} {m['prefill']:.3f} ms; decode step median "
+            f"{statistics.median(dec):.3f} ms (min {min(dec):.3f}, max {max(dec):.3f}) over "
+            f"{steps} steps: {batch * steps / (sum(dec) / 1e3):.1f} tok/s on {card}")
+    log(f"  [decoder] logits and K/V caches: ita == w8a8 == the model chain on the card at "
+        f"the prefill and all {steps} decode steps (batch {batch}, {cap} KV rows)")
+    del sessions, ref_cache, qp_dev
+
+    # the card against the CPU, full width and depth, short prompt
+    seq, cap, batch, steps = (DECODER_CPU[k] for k in ("seq_len", "max_len", "batch", "steps"))
+    prompts = torch.randint(0, cfg.vocab, (batch, seq), generator=gen, dtype=torch.int32)
+    runs = {}
+    for label, be, device in (("card", "ita", on_card), ("card", "w8a8", on_card),
+                              ("cpu", "w8a8", "cpu")):
+        model = api.compile(cfg, backend=be, seq_len=seq, max_len=cap, use_cache=False)
+        sess = model.session(batch, qp=qp, device=device)
+        t0 = time.perf_counter()
+        out = [sess.prefill(prompts)]
+        for _ in range(steps):
+            out.append(sess.decode(_greedy(torch, out[-1].cpu())))
+        out += [sess.kv_cache["k"], sess.kv_cache["v"]]
+        runs[(be, label)] = [t.cpu() for t in out]
+        log(f"  [decoder] short prompt {batch}x{seq} + {steps} steps, {be} on "
+            f"{sess.device.type}: {time.perf_counter() - t0:.1f}s")
+    cpu = runs[("w8a8", "cpu")]
+    for key in (("ita", "card"), ("w8a8", "card")):
+        for i, (a, b) in enumerate(zip(runs[key], cpu)):
+            same(a, b, f"{key[0]} card and CPU output {i} (short prompt)")
+    log("  [decoder] short prompt: the card equals the CPU on both backends (logits at "
+        "every step, K and V caches)")
+    for w in wrappers.values():
+        w.launches = 0
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -666,6 +824,10 @@ def main() -> int:
     log("[slice] compile -> session(8) -> forward on the card, vs the CPU forward "
         "(ita, w8a8, DeiT-Ti widths on ita)")
     launches = slice_phase(torch, card, dev)
+    log("[decoder] OLMo-1B at full width: compile -> session(8) -> prefill + 16 decode "
+        "steps on the card, ita vs w8a8 vs the model chain, and the card vs the CPU")
+    for name, n in decoder_phase(torch, card, dev).items():
+        launches[name] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]
         require(k["launches"] > 0, f"{k['name']} was never launched on the main path")

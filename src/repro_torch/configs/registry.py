@@ -1,8 +1,8 @@
 """Config registry: ``--arch <id>`` resolution for the port's launchers.
 
-The port carries the paper's three encoder models only; the decoder and
-hybrid architectures of the JAX package arrive with the slices that can
-run them.
+The port carries the paper's three encoder models and the dense decoder
+OLMo-1B; the other architectures of the JAX package arrive with the
+slices that can run them.
 """
 
 from __future__ import annotations
@@ -15,9 +15,10 @@ _MODULES = {
     "mobilebert": "mobilebert",
     "dinov2-small": "dinov2_small",
     "whisper-tiny-encoder": "whisper_tiny_encoder",
+    "olmo-1b": "olmo_1b",
 }
 
-PAPER_MODELS = tuple(_MODULES)
+PAPER_MODELS = ("mobilebert", "dinov2-small", "whisper-tiny-encoder")
 
 
 def get_config(name: str) -> ArchConfig:

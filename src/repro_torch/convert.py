@@ -2,9 +2,11 @@
 
 The two packages draw different random numbers from the same seed, so a
 comparison feeds both the same ints: the JAX side's
-``encoder.quantize_params`` output (or its float params), turned into
-numpy arrays by the caller, becomes the port's layout here — the stacked
-``layers`` pytree (leading layer axis) becomes a list of per-layer dicts.
+``encoder.quantize_params`` or ``transformer.quantize_params`` output (or
+its float params), turned into numpy arrays by the caller, becomes the
+port's layout here — the stacked ``layers`` pytree (leading layer axis)
+becomes a list of per-layer dicts; every other entry (``embed.table_q``,
+``pos_q``, ``final_norm``, an untied ``lm_head``) is carried as it is.
 No JAX import is needed: the inputs are numpy.
 """
 
@@ -42,10 +44,12 @@ def _convert(tree: dict, device) -> dict:
 
 
 def from_jax_quantized(qp_numpy: dict, device=None) -> dict:
-    """``repro.models.encoder.quantize_params`` output (numpy) -> port ``qp``."""
+    """``repro.models.encoder.quantize_params`` or
+    ``repro.models.transformer.quantize_params`` output (numpy) -> port ``qp``."""
     return _convert(qp_numpy, device)
 
 
 def from_jax_params(params_numpy: dict, device=None) -> dict:
-    """``repro.models.encoder.init_params`` output (numpy) -> port float params."""
+    """``repro.models.encoder.init_params`` or ``repro.models.transformer.init_params``
+    output (numpy) -> port float params."""
     return _convert(params_numpy, device)

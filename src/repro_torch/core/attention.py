@@ -9,6 +9,8 @@
 * :func:`attention_flash_i8` — single pass over KV blocks with the
   flash-ITAMax state; the plain version of the ``ita_attention`` kernel,
   bit-exact with it at equal ``block_k``.
+* :func:`attention_decode_i8` — the flash path against an int8 KV cache,
+  masked per request past its valid rows (the decoder's cached attention).
 
 GQA repeats KV heads; 1/sqrt(d_head) and all scales fold into the logit
 requantization multiplier.
@@ -124,3 +126,22 @@ def attention_flash_i8(
         state = im.flash_block_update(state, logits, v_q[:, :, j0 : j0 + block_k], mask)
     q77 = im.flash_finalize_q77(state)
     return requantize(q77, p.out_mult, p.out_shift)
+
+
+def attention_decode_i8(
+    q_q: torch.Tensor,  # int8 [B, H, Sq, D]
+    k_cache: torch.Tensor,  # int8 [B, Hkv, Smax, D]
+    v_cache: torch.Tensor,  # int8 [B, Hkv, Smax, D]
+    cache_len,  # valid cache rows: int, or int32 tensor [] / [B] / broadcastable
+    p: MhaQParams,
+    block_k: int = 2048,
+) -> torch.Tensor:
+    """Decode against an int8 KV cache: the flash path with the rows past
+    ``cache_len`` masked (a [B] length is one per request)."""
+    kv_len = cache_len
+    if isinstance(cache_len, torch.Tensor):
+        kv_len = cache_len.to(device=q_q.device, dtype=torch.int32)
+        if kv_len.dim() == 1:
+            kv_len = kv_len[:, None, None, None]
+    return attention_flash_i8(q_q, k_cache, v_cache, p, causal=False, block_k=block_k,
+                              kv_len=kv_len)

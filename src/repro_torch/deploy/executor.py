@@ -8,14 +8,24 @@ operators — as ``ita_supports`` decides.
 
 Contract: ``execute(plan, bind_encoder_weights(...), batch, backend=b)``
 equals the JAX package's ``execute`` on the same ints, element for
-element, on both backends.  PyTorch runs eagerly: the bound program is a
-tuple of closures walked in schedule order.
+element, on both backends, and so do ``execute_prefill`` /
+``execute_decode`` of a :class:`DecoderPlanPair` (logits, K and V caches
+and ``len`` at every step).  PyTorch runs eagerly: the bound program is
+a tuple of closures walked in schedule order, and a fused region is its
+body's closures run in order inside one call.
+
+Unlike the reference, ``execute_decode`` writes the cache it is given in
+place (the plan aliases each ``cache_out`` to its ``cache_in``): it
+returns the same tensors, advanced by one row per request.
 """
 
 from __future__ import annotations
 
 import math
 from typing import Callable
+
+import numpy as np
+import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.heterogeneous import (
@@ -28,7 +38,7 @@ from repro_torch.core.heterogeneous import (
 )
 from repro_torch.core.quant_linear import ACT_GELU, ACT_IDENTITY, ACT_RELU
 from repro_torch.deploy.patterns import opdesc_from_attrs
-from repro_torch.deploy.plan import DeploymentPlan, PlanNode
+from repro_torch.deploy.plan import DecoderPlanPair, DeploymentPlan, PlanNode
 
 #: fused-activation vocabulary the GEMM runner can lower
 _GEMM_ACTS = {"identity": ACT_IDENTITY, "relu": ACT_RELU, "gelu": ACT_GELU}
@@ -133,7 +143,8 @@ def _compile_mha(node: PlanNode, table, backend) -> Callable:
 
 
 def _compile_cluster(node: PlanNode, table, backend) -> Callable:
-    """Bind one cluster-engine node of the encoder's kinds."""
+    """Bind one cluster-engine node (the encoder's kinds and the dense
+    decoder's)."""
     kind = node.kind
     a = node.attrs
     # The node's description is the plan's own (rows padded to the granule,
@@ -172,12 +183,62 @@ def _compile_cluster(node: PlanNode, table, backend) -> Callable:
     if kind == "dequant":
         scale = a["scale"]
         return lambda env: fn(env[ins[0]], scale=scale)
+    # decoder / KV-cache kinds
+    if kind == "rope":
+        kw = dict(heads=a["heads"], head_dim=a["head_dim"], theta=a["theta"])
+        if len(ins) <= 1:
+            positions = np.arange(a["dims"][0])  # prefill: static 0..S
+            return lambda env: fn(env[ins[0]], positions, **kw)
+        return lambda env: fn(env[ins[0]], env[ins[1]], **kw)
+    if kind == "attn_causal":
+        kw = dict(heads=a["heads"], kv_heads=a["kv_heads"], head_dim=a["head_dim"],
+                  s_act=a["s_act"], s_out=a["s_out"], block_k=a["block_k"])
+        return lambda env: fn(env[ins[0]], env[ins[1]], env[ins[2]], **kw)
+    if kind == "attn_cached":
+        kw = dict(heads=a["heads"], head_dim=a["head_dim"],
+                  s_act=a["s_act"], s_out=a["s_out"], block_k=a["block_k"])
+        return lambda env: fn(env[ins[0]], env[ins[1]], env[ins[2]], env[ins[3]], **kw)
+    if kind == "cache_write":
+        kw = dict(kv_heads=a["kv_heads"], head_dim=a["head_dim"], max_len=a["max_len"])
+        cache_t = ins[1] if len(ins) > 1 else None
+        pos_t = ins[2] if len(ins) > 2 else None
+
+        def run(env):
+            cache = env[cache_t] if cache_t is not None else None
+            pos = env[pos_t] if pos_t is not None else None
+            return fn(env[ins[0]], cache, pos, **kw)
+
+        return run
+    if kind == "silumul":
+        scales = tuple(a["scales"])
+        return lambda env: fn(env[ins[0]], env[ins[1]], scales=scales)
+    if kind == "lasttok":
+        return lambda env: fn(env[ins[0]])
+    if kind == "lmhead":
+        scale, tied = a["scale"], a["tied"]
+        return lambda env: fn(env[ins[0]], env[ins[1]], scale=scale, tied=tied)
     raise NotImplementedError(f"no runner for op kind {kind!r} ({node.op})")
+
+
+def _compile_region(node: PlanNode, table, backend) -> Callable:
+    """Bind a FusedRegion: every body node is bound once, and one call runs
+    their closures in schedule order (no ``torch.compile``, no CUDA graph:
+    the region saves the top-level walk, not the kernels' dispatch)."""
+    body = tuple((b.outputs[0], _compile_node(b, table, backend)) for b in node.body)
+    in_names, out_names = node.inputs, node.outputs
+
+    def run(env):
+        local = {t: env[t] for t in in_names}
+        for out, fn in body:
+            local[out] = fn(local)
+        return tuple(local[t] for t in out_names)
+
+    return run
 
 
 def _compile_node(node: PlanNode, table, backend) -> Callable:
     if node.fused:
-        raise NotImplementedError(f"{node.name}: fused regions are not ported yet")
+        return _compile_region(node, table, backend)
     if node.kind == "gemm":
         return _compile_gemm(node, table, backend)
     if node.kind == "mha":
@@ -231,7 +292,10 @@ def execute(
     for name in plan.inputs:
         env[name] = batch[name]
     for node, run in program:
-        env[node.outputs[0]] = run(env)
+        if node.fused:
+            env.update(zip(node.outputs, run(env)))
+        else:
+            env[node.outputs[0]] = run(env)
     outs = [env[name] for name in plan.outputs]
     return outs[0] if len(outs) == 1 else tuple(outs)
 
@@ -358,3 +422,86 @@ def bind_encoder_weights(plan: DeploymentPlan, cfg: ArchConfig, qp: dict) -> dic
     bound = {k: v for k, v in weights.items() if k in plan.tensors and plan.tensors[k].weight}
     check_bindings(plan, weights=bound)
     return bound
+
+
+# ---------------------------------------------------------------------------
+# Decoder plans: weight binding + KV-cache-threading executors
+# ---------------------------------------------------------------------------
+
+
+def bind_decoder_weights(plan: DeploymentPlan, cfg: ArchConfig, qp: dict) -> dict:
+    """Map decoder plan weight names onto ``transformer.quantize_params``
+    output (``qp["layers"]`` a list of per-layer dicts).  The prefill and
+    decode plans declare one weight set, so either plan gives the same
+    dict."""
+    weights: dict = {}
+    put, put_norm = _weight_binder(weights)
+    for l, lp in enumerate(qp["layers"]):
+        pre = f"l{l}_"
+        _bind_attn_layer(put, put_norm, pre, cfg, lp)
+        for mname in ("gate", "up", "down"):
+            if mname in lp["mlp"]:
+                put(pre + mname, lp["mlp"][mname]["w_q"])
+                put(pre + mname + "_b", lp["mlp"][mname].get("b_q"))
+    put_norm("final_norm", qp["final_norm"])
+    put("embed_table", qp["embed"]["table_q"])
+    if "lm_head" in qp:
+        put("lm_head", qp["lm_head"]["w_q"])
+    bound = {k: v for k, v in weights.items() if k in plan.tensors and plan.tensors[k].weight}
+    check_bindings(plan, weights=bound)
+    return bound
+
+
+def _stack_cache(plan: DeploymentPlan, outs_by_name: dict, length: int) -> dict:
+    """Per-layer cache outputs -> the model-shaped cache
+    ``{"k": [L, B, Hkv, M, D], "v": ..., "len": int32 (host)}``."""
+    ks = [outs_by_name[out] for _, out in plan.kv_state[0::2]]
+    vs = [outs_by_name[out] for _, out in plan.kv_state[1::2]]
+    return {"k": torch.stack(ks), "v": torch.stack(vs),
+            "len": torch.tensor(length, dtype=torch.int32)}
+
+
+def execute_prefill(
+    pair: DecoderPlanPair,
+    weights: dict,
+    batch: dict,
+    *,
+    backend: Backend | str = Backend.W8A8,
+    table: DispatchTable | None = None,
+):
+    """Run the prefill schedule.  Returns ``(logits, cache)``: the last
+    token's logits [B, 1, vocab_padded] and the same cache layout as
+    ``transformer.prefill_w8a8``."""
+    plan = pair.prefill
+    outs = execute(plan, weights, batch, backend=backend, table=table)
+    outs_by_name = dict(zip(plan.outputs, outs))
+    return outs_by_name[plan.outputs[0]], _stack_cache(plan, outs_by_name, plan.seq_len)
+
+
+def execute_decode(
+    pair: DecoderPlanPair,
+    weights: dict,
+    cache: dict,
+    token,
+    *,
+    pos=None,
+    backend: Backend | str = Backend.W8A8,
+    table: DispatchTable | None = None,
+):
+    """Advance one token per request through the decode schedule.
+
+    ``pos`` is the generation depth fed to RoPE, the cache append and the
+    attention mask, as host data: a scalar (every request at one depth;
+    default ``cache["len"]``) or a [B] vector (each request at its own
+    depth).  The cache is written in place; a row at or past ``max_len``
+    raises (the reference clamps the write instead — check capacity first,
+    as ``InferenceSession.decode`` does).
+    """
+    plan = pair.decode
+    pos = np.asarray(cache["len"] if pos is None else pos, np.int32)
+    batch = {"token": token, "pos": torch.from_numpy(pos)}
+    for i, (cin, _) in enumerate(plan.kv_state):
+        batch[cin] = cache["k" if i % 2 == 0 else "v"][i // 2]
+    logits = execute(plan, weights, batch, backend=backend, table=table)[0]
+    # every cache_write wrote its layer's view of cache["k"] / cache["v"]
+    return logits, {"k": cache["k"], "v": cache["v"], "len": torch.as_tensor(pos + 1)}

@@ -2,8 +2,10 @@
 
 Mirrors the paper's §IV-D flow: "Deeploy starts by matching an MHA pattern
 and fuses it to form a monolithic node in the graph."  The head split
-(per-head MHA nodes plus a cluster head accumulation) and region fusion
-of the JAX package are not ported yet.
+(per-head MHA nodes plus a cluster head accumulation) of the JAX package
+is not ported yet.  :func:`fuse_regions` is the plan-level pass that
+collapses same-engine schedule runs of decoder plans into ``FusedRegion``
+mega-nodes.
 
 Engine mapping is driven by :func:`repro_torch.core.heterogeneous.ita_supports`
 via :func:`node_opdesc` — the same predicate the runtime dispatch table
@@ -209,3 +211,92 @@ def deploy_pipeline(g: Graph, head_by_head: bool = False, granule: int = ITA_GRA
     g = fuse_gelu_epilogue(g)
     return g
 
+
+# ---------------------------------------------------------------------------
+# Region fusion (plan-level): decode-step mega-kernels
+# ---------------------------------------------------------------------------
+
+#: plan-node kinds that always terminate a fusion region.  Persistent KV
+#: writes stay visible at the top of the schedule — the engine's in-place
+#: pool/cache update is a cross-dispatch contract, so a region must never
+#: hide one (also asserted by ``DeploymentPlan.validate``).
+FUSION_BARRIERS = frozenset({"cache_write", "cache_write_paged"})
+
+
+def fuse_regions(plan, *, min_nodes: int = 2):
+    """Collapse maximal same-engine schedule runs into ``FusedRegion`` nodes.
+
+    The Deeploy-style operator-fusion pass, applied *after* tiling and
+    memory planning so the interior nodes keep their static solution:
+    contiguous schedule runs on one engine (norm -> qkv -> rope,
+    attn -> proj -> residual -> MLP chains) become a single mega-node the
+    executor dispatches as one closure — collapsing the per-layer decode
+    step from ~17 top-level nodes to a handful.  Fusion
+    never crosses an engine boundary (a region is single-engine by
+    construction) and never swallows a persistent KV write
+    (:data:`FUSION_BARRIERS` / kv_state outputs stay top-level).  Runs
+    shorter than ``min_nodes`` are left unfused — a one-node region would
+    only add indirection.
+
+    Purely structural: the interior nodes execute the identical runners
+    in the identical order, so fused plans are bit-exact vs unfused ones
+    (tested on both backends).
+    """
+    from repro_torch.deploy.plan import PlanNode
+
+    kv_writes = {cout for _, cout in plan.kv_state}
+
+    def barrier(n) -> bool:
+        return (n.kind in FUSION_BARRIERS or n.fused
+                or any(o in kv_writes for o in n.outputs))
+
+    # group the schedule into maximal same-engine barrier-free runs
+    groups: list[tuple[str | None, list]] = []
+    for n in plan.nodes:
+        if barrier(n):
+            groups.append((None, [n]))
+        elif groups and groups[-1][0] == n.engine:
+            groups[-1][1].append(n)
+        else:
+            groups.append((n.engine, [n]))
+
+    consumers: dict[str, set[str]] = {}
+    for n in plan.nodes:
+        for t in n.inputs:
+            consumers.setdefault(t, set()).add(n.name)
+    plan_outs = set(plan.outputs)
+
+    new_nodes: list[PlanNode] = []
+    region_idx = 0
+    for engine, body in groups:
+        if engine is None or len(body) < min_nodes:
+            new_nodes.extend(body)
+            continue
+        body_names = {n.name for n in body}
+        produced = {o for n in body for o in n.outputs}
+        inputs: list[str] = []
+        for n in body:
+            for t in n.inputs:
+                if t not in produced and t not in inputs:
+                    inputs.append(t)
+        outputs = [
+            o for n in body for o in n.outputs
+            if o in plan_outs or (consumers.get(o, set()) - body_names)
+        ]
+        new_nodes.append(PlanNode(
+            name=f"fused{region_idx}_{engine}",
+            op="FusedRegion",
+            kind="fused_region",
+            engine=engine,
+            inputs=tuple(inputs),
+            outputs=tuple(outputs),
+            attrs={"n_body": len(body)},
+            body=tuple(body),
+        ))
+        region_idx += 1
+
+    import dataclasses
+
+    return dataclasses.replace(
+        plan, nodes=new_nodes, schedule=tuple(n.name for n in new_nodes)
+    ).validate()

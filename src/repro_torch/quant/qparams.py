@@ -110,27 +110,59 @@ def _value_bits(t: torch.Tensor) -> int:
     return max(int(t.max()), -int(t.min())).bit_length()
 
 
+#: ``torch._int_mm`` takes more than 16 rows; fewer are padded to this many
+INT_MM_MIN_ROWS = 17
+INT_MM_PAD_ROWS = 32
+
+
+def int_mm_padded(a2: torch.Tensor, b: torch.Tensor, mm=None) -> torch.Tensor:
+    """``a2 [M, K] @ b [K, N]`` (int8, K and N multiples of 8) through
+    ``mm`` (``torch._int_mm`` by default), as int32 [M, N].
+
+    ``_int_mm`` needs more than 16 rows: a product with fewer (a decode
+    step's M = batch) gets zero rows up to :data:`INT_MM_PAD_ROWS`, and
+    they are sliced away after the product (exact: a zero row's dot is 0
+    and touches no other row).  A ``b`` that is the transpose of a
+    contiguous matrix (the tied LM head's ``table.T``) is not copied: the
+    product runs as ``(b.T @ a2.T).T``, with ``a2``'s rows padded to a
+    multiple of 8, so that the large operand is read where it lies.
+    """
+    mm = torch._int_mm if mm is None else mm
+    m, k = a2.shape
+    if not b.is_contiguous() and b.T.is_contiguous() and b.shape[1] >= INT_MM_MIN_ROWS:
+        pad = -m % 8 if m >= 8 else 8 - m
+        at = a2.T
+        if pad:
+            at = torch.cat([at, at.new_zeros((k, pad))], dim=1)
+        return mm(b.T, at.contiguous())[:, :m].T.contiguous()
+    pad = INT_MM_PAD_ROWS - m if m < INT_MM_MIN_ROWS else 0
+    if pad:
+        a2 = torch.cat([a2, a2.new_zeros((pad, k))])
+    out = mm(a2.contiguous(), b.contiguous())
+    return out[:m] if pad else out
+
+
 def imatmul_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` of integer tensors as the int32 accumulator of the JAX
     package's ``preferred_element_type=int32`` products, on any device.
 
-    2-D-weight int8 products whose shapes ``torch._int_mm`` takes (more
-    than 16 rows, K and N multiples of 8) go through it.  Every other
-    product runs in float64, exact while every partial sum stays within
-    2^53: ``K * max|a| * max|b| < 2^53``, checked from the dtypes (K below
-    2^39 for int8 x int8, 2^15 for int32 x int8) or, where the dtypes
-    cannot show it, from the values (one reduction each; it raises
-    beyond).  The float64 result converts through int64 to int32, so it
-    wraps as an int32 accumulator does.  Not float32: its 2^24 limit is
-    passed by a 1536-deep int8 product.
+    2-D-weight int8 products with K and N multiples of 8 go through
+    ``torch._int_mm`` (:func:`int_mm_padded`, which pads fewer than 17
+    rows).  Every other product runs in float64, exact while every partial
+    sum stays within 2^53: ``K * max|a| * max|b| < 2^53``, checked from the
+    dtypes (K below 2^39 for int8 x int8, 2^15 for int32 x int8) or, where
+    the dtypes cannot show it, from the values (one reduction each; it
+    raises beyond).  The float64 result converts through int64 to int32,
+    so it wraps as an int32 accumulator does.  Not float32: its 2^24 limit
+    is passed by a 1536-deep int8 product.
     """
     k = a.shape[-1]
     if b.shape[-2] != k:
         raise ValueError(f"imatmul: {tuple(a.shape)} @ {tuple(b.shape)}")
     if a.dtype == torch.int8 and b.dtype == torch.int8 and b.dim() == 2:
         a2 = a.reshape(-1, k)
-        if a2.shape[0] > 16 and k % 8 == 0 and b.shape[1] % 8 == 0:
-            out = torch._int_mm(a2.contiguous(), b.contiguous())
+        if a2.shape[0] > 0 and k % 8 == 0 and b.shape[1] % 8 == 0:
+            out = int_mm_padded(a2, b)
             return out.reshape(*a.shape[:-1], b.shape[1])
     k_bits = k.bit_length()  # K < 2^k_bits
     if k_bits + _DTYPE_BITS[a.dtype] + _DTYPE_BITS[b.dtype] > F64_EXACT_BITS:

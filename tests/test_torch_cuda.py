@@ -107,6 +107,13 @@ def test_int8_gemm_cuda_every_path_shape(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 8192), (8192, 2048)])
+def test_int8_gemm_cuda_olmo_shapes(cuda_device, k, n):
+    """OLMo-1B's prefill GEMMs at batch 8 x 128 tokens (K and N up to 8192)."""
+    _gemm_check(cuda_device, 1024, k, n, ACT_IDENTITY, seed=k + n)
+
+
+@pytest.mark.cuda
 def test_int8_gemm_cuda_int32_sum_wraps(cuda_device):
     """A bias next to 2^31 makes x @ w + bias wrap; the kernel's int32
     accumulator and epilogue wrap as the reference's do."""
@@ -298,6 +305,56 @@ def test_exact_product_cuda_vs_int32(cuda_device, case):
     got = imatmul(a.to(cuda_device), b.to(cuda_device))
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 16])
+def test_exact_product_cuda_small_m(cuda_device, m):
+    """Decode-step products (M = batch <= 16) take torch._int_mm through
+    zero rows padded to 32, and the tied LM head reads table.T in place."""
+    gen = torch.Generator().manual_seed(m)
+    a = _ri8(gen, (m, 2048))
+    w = _ri8(gen, (2048, 8192), lo=-127)
+    table = _ri8(gen, (4096, 2048), lo=-127)
+    for b in (w, table.T):
+        want = torch.matmul(a.int(), b.int())
+        got = imatmul(a.to(cuda_device), b.to(cuda_device) if b is w else
+                      table.to(cuda_device).T)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["ita", "w8a8"])
+def test_decoder_session_on_the_card(cuda_device, backend):
+    """Reduced OLMo: prefill and 3 decode steps on the card equal the CPU
+    session (logits and KV caches); int8_gemm runs the ``ita`` prefill's
+    accelerated GEMMs and no kernel runs in a decode step."""
+    cfg = reduced(get_config("olmo-1b"))
+    model = api.compile(cfg, backend=backend, seq_len=16, max_len=20, use_cache=False)
+    _, qp = model.bind(seed=0)
+    card, cpu = model.session(2, qp=qp), model.session(2, qp=qp, device="cpu")
+    assert card.device.type == "cuda"
+    gemms = sum(n.kind == "gemm" and n.engine == "ita"
+                for n in model.artifact.prefill.flat_nodes()) if backend == "ita" else 0
+    kernels = (itamax, int8_gemm, ita_attention, igelu)
+    prompts = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(5),
+                            dtype=torch.int32)
+    counts = {f: f.launches for f in kernels}
+    got, want = card.prefill(prompts), cpu.prefill(prompts)
+    torch.cuda.synchronize()
+    assert int8_gemm.launches - counts[int8_gemm] == gemms
+    for step in range(4):
+        assert torch.equal(got.cpu(), want)
+        for part in ("k", "v"):
+            assert torch.equal(card.kv_cache[part].cpu(), cpu.kv_cache[part])
+        if step == 3:
+            break
+        tok = torch.argmax(want[:, -1], dim=-1).to(torch.int32)
+        counts = {f: f.launches for f in kernels}
+        got, want = card.decode(tok), cpu.decode(tok)
+        torch.cuda.synchronize()
+        assert all(f.launches == n for f, n in counts.items())
 
 
 @pytest.mark.cuda
