@@ -28,7 +28,9 @@ exit code and no result line):
    elements (igelu), which tells a kernel bound by its launch from one
    that is still slow.  The exact integer product
    of the plain path (``quant.qparams.imatmul`` on CUDA: ``torch._int_mm``
-   or float64) must equal the CPU's int32 product, a wrapping case included;
+   or float64) must equal the CPU's int32 product, a wrapping case included,
+   and every product shape that ``torch._int_mm`` refuses on the card must
+   be one that the exact product keeps off it;
 4. slice  — compile(cfg, backend) -> session(8) -> forward on the card, for
    - ``ita``: MobileBERT, Whisper-tiny-encoder and DINOv2-small at their
      full configs (int8_gemm and ita_attention);
@@ -53,7 +55,33 @@ exit code and no result line):
    card.  A short prompt (seq_len 32, max_len 40, batch 2, 3 decode steps)
    checks the card against the CPU at full width and depth, and the
    prefill time, the time per decode step and the generated tokens per
-   second print per backend.
+   second print per backend;
+6. head-by-head — the paper's per-head MHA schedule: compile(cfg,
+   head_by_head=True) -> session(8) -> forward for the three encoders at
+   their full configs on ``ita`` and ``w8a8``.  The launches per forward
+   must be the plan's (``ita``: ita_attention once a head at H = 1, and
+   int8_gemm for the MLP only, since a head's Q/K/V projections are 64
+   wide and go to the cluster; ``w8a8``: itamax once a head) and the
+   output must equal the CPU forward bit for bit.  The kernel phase holds
+   ita_attention at these H = 1 shapes against its plain version and
+   times it;
+7. paged  — OLMo-1B at full width and depth over a paged KV region
+   (seq_len 128, blocks of 16 rows, max_len 272, a pool of 145 blocks),
+   batch 8, both backends, one weight draw: every slot prefills a
+   2-chunk prompt by prefill_chunks; half the slots are freed, attach the
+   first 200 rows of slot 0's chain (a partial last block) and prefill
+   their tails, which copies the shared blocks they overwrite; 16 greedy
+   decode steps follow with one slot parked by ``active``, and one slot
+   is freed and re-prefilled mid-run.  int8_gemm must launch 112 times
+   per ``ita`` chunk and never in a decode step; the logits must equal
+   the dense pair's (the same prompts prefilled and teacher-forced over a
+   dense region of 272 rows, where both attend in one flash block) at
+   every step, the shared slots' must equal the same prompts prefilled
+   unshared, ``ita`` must equal ``w8a8`` (pools included), and the free
+   blocks and copy-on-write copies must be those the block arithmetic
+   predicts.  A short prompt (seq_len 32, batch 2) runs the same steps on
+   the card and on the CPU and must give the same ints.  The chunk and
+   decode-step times print beside the dense pair's.
 
 It prints the kernels line (JSON), the nvidia-smi line, and last the
 contract line {"ok": true, "device": {...}}.  It exits non-zero, printing
@@ -269,13 +297,17 @@ def gemm_cases():
 OLMO_GEMM_KN = [(2048, 2048), (2048, 8192), (8192, 2048)]
 
 
-#: (label, B, H, Hkv, S, D, kv_valid, causal) of the ita_attention checks
+#: (label, B, H, Hkv, S, D, kv_valid, causal) of the ita_attention checks;
+#: the head-by-head schedule calls it one head at a time (H = 1, B*H = 8)
 ATTN_CASES = [
     ("mobilebert", 8, 4, 4, 128, 64, None, False),
     ("whisper-tiny-encoder", 8, 6, 6, 512, 64, None, False),
     ("dinov2-small", 8, 6, 6, 256, 64, 241, False),
     ("gqa-group2", 8, 6, 3, 256, 64, None, False),
     ("causal", 8, 4, 4, 256, 64, None, True),
+    ("one-head-mobilebert", 8, 1, 1, 128, 64, None, False),
+    ("one-head-whisper", 8, 1, 1, 512, 64, None, False),
+    ("one-head-dinov2", 8, 1, 1, 256, 64, 241, False),
 ]
 
 #: (label, rows, n) of the itamax checks: one w8a8 layer's softmax at
@@ -380,6 +412,30 @@ def exact_product_phase(torch, gen, dev) -> None:
         require(wraps == label.startswith("int32"), f"imatmul {label}: wrap {wraps}")
         log(f"  imatmul {label:26s} {tuple(a.shape)} @ {tuple(b.shape)}: equal"
             f"{' (the int32 accumulator wraps)' if wraps else ''}")
+
+
+def int_mm_depth_phase(torch, dev) -> None:
+    """Which int8 products ``torch._int_mm`` (cuBLASLt) takes on this card,
+    over the depths and row counts of the paths: every product it refuses
+    must be one that ``imatmul_exact`` keeps off it (K below
+    ``INT_MM_MIN_DEPTH``)."""
+    from repro_torch.quant.qparams import INT_MM_MIN_DEPTH
+
+    refused, shapes = [], [(m, k, n) for m in (24, 40, 1000, 1024, 1576, 1928, 4096)
+                           for k in (32, 64, 96, 128, 192) for n in (64, 128, 384)]
+    for m, k, n in shapes:
+        a = torch.ones((m, k), dtype=torch.int8, device=dev)
+        b = torch.ones((k, n), dtype=torch.int8, device=dev)
+        try:
+            torch._int_mm(a, b)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            require("NOT_SUPPORTED" in str(e), f"_int_mm {(m, k, n)}: {e}")
+            refused.append((m, k, n))
+    log(f"  torch._int_mm refuses {len(refused)} of {len(shapes)} products: "
+        f"{sorted({(m, k) for m, k, _ in refused})} (rows, depth), at every N of 64, 128, 384")
+    require(all(k < INT_MM_MIN_DEPTH for _, k, _ in refused),
+            f"_int_mm refuses products of depth >= {INT_MM_MIN_DEPTH}: {refused}")
 
 
 def kernel_phase(torch, gen, dev) -> list[dict]:
@@ -783,6 +839,355 @@ def decoder_phase(torch, card: str, dev) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# head-by-head phase
+# ---------------------------------------------------------------------------
+
+#: (arch, backend, launches per forward) of the paper's head-by-head
+#: schedule at batch 8, from the plan's dispatch: on ``ita`` each head's
+#: attention is one ita_attention launch at H = 1, and a head's Q/K/V
+#: projections (N = head_dim = 64, below the kernel backend's 128 granule)
+#: run on the cluster, so int8_gemm runs the MLP's two GEMMs a layer; on
+#: ``w8a8`` each head's rowwise softmax is one itamax launch
+HEAD_BY_HEAD = [
+    ("mobilebert", "ita", dict(int8_gemm=48, ita_attention=96)),
+    ("mobilebert", "w8a8", dict(itamax=96)),
+    ("whisper-tiny-encoder", "ita", dict(int8_gemm=8, ita_attention=24)),
+    ("whisper-tiny-encoder", "w8a8", dict(itamax=24)),
+    ("dinov2-small", "ita", dict(int8_gemm=24, ita_attention=72)),
+    ("dinov2-small", "w8a8", dict(itamax=72)),
+]
+HBH_FORWARDS = 2
+
+
+def head_by_head_phase(torch, card: str, dev) -> dict[str, int]:
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.deploy import api
+    from repro_torch.launch.serve import make_requests
+
+    wrappers = kernels.wrappers()
+    launches = dict.fromkeys(wrappers, 0)
+    for arch, backend, per_fwd in HEAD_BY_HEAD:
+        cfg = get_config(arch)
+        model = api.compile(cfg, backend=backend, head_by_head=True, use_cache=False)
+        plan = model.artifact
+        heads = sum(n.op == "MHAHead" for n in plan.nodes)
+        require(heads == cfg.n_layers * cfg.n_heads, f"{arch}: {heads} MHAHead nodes")
+        session = model.session(BATCH, seed=SEED, device=None if dev.type == "cuda" else dev)
+        require(session.device == dev, f"session on {session.device}, not {dev}")
+        reqs = make_requests(cfg, plan, BATCH, HBH_FORWARDS, SEED)
+        dev_reqs = [r.to(dev) for r in reqs]
+        session.forward(dev_reqs[0])  # warm-up
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        outs = [session.forward(r) for r in dev_reqs]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = {name: w.launches for name, w in wrappers.items()}
+        want = {name: HBH_FORWARDS * per_fwd.get(name, 0) for name in wrappers}
+        require(got == want, f"head-by-head {arch} {backend}: launches {got}, expected {want}")
+        for name, n in got.items():
+            launches[name] += n
+        out = outs[0]
+        want_shape = (BATCH, plan.seq_len, cfg.vocab if cfg.vocab else cfg.d_model)
+        require(tuple(out.shape) == want_shape, f"{arch}: output {tuple(out.shape)}")
+        require(bool(torch.isfinite(out).all()), f"{arch}: non-finite output")
+        cpu = model.session(BATCH, seed=SEED, device="cpu")
+        require(torch.equal(out.cpu(), cpu.forward(reqs[0])),
+                f"head-by-head {arch} {backend}: card forward != CPU forward")
+        inf_s = HBH_FORWARDS * BATCH / dt
+        per = ", ".join(f"{n} {c // HBH_FORWARDS}" for n, c in got.items() if c) or "none"
+        log(f"  [head-by-head] {arch} ({backend}): {len(plan.nodes)} plan nodes, {heads} "
+            f"heads; launches per forward: {per}; output {want_shape} equals the CPU forward "
+            f"bit for bit; {HBH_FORWARDS} forwards of {BATCH}x{plan.seq_len} in {dt:.4f}s: "
+            f"{inf_s:.1f} inf/s on {card}")
+    for w in wrappers.values():
+        w.launches = 0
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# paged phase
+# ---------------------------------------------------------------------------
+
+#: OLMo-1B over a paged KV region at batch 8: prompts of two seq_len
+#: chunks, blocks of 16 rows, max_len 272 (17 blocks a slot: 256 prompt
+#: rows and 16 decode steps) and a pool of 145 blocks (eight 2-chunk
+#: prompts hold 128); half the slots attach the first 200 rows of slot
+#: 0's chain (12.5 blocks); slot 2 is freed and re-prefilled after step 8
+PAGED = dict(seq_len=128, block=16, max_len=272, kv_blocks=145, batch=8, steps=16,
+             shared_rows=200, free_at=8)
+#: the short prompt of the card-vs-CPU check, same steps
+PAGED_CPU = dict(seq_len=32, block=16, max_len=72, kv_blocks=10, batch=2, steps=3,
+                 shared_rows=40, free_at=2)
+
+
+def _dispatch(torch, flow: dict, step_done, label: str, kind: str, fn):
+    """Run one timed dispatch ``fn()`` (a prefill chunk or a decode step),
+    keep its logits under ``label`` and its ms under ``kind``."""
+    t = time.perf_counter()
+    logits = fn()
+    if logits.is_cuda:
+        torch.cuda.synchronize()
+    flow["ms"][kind].append(1e3 * (time.perf_counter() - t))
+    step_done(label, kind)
+    flow["logits"][label] = logits
+    return logits
+
+
+def paged_flow(torch, sess, prompts, fresh, cfg_p: dict, step_done) -> dict:
+    """The paged steps on one session; returns the logits by label (on the
+    session's device) and the times.  ``step_done(label, kind)`` runs after
+    every dispatch (the launch counts).  Checks the block arithmetic."""
+    from repro_torch.deploy.paging import blocks_for_rows
+
+    b_n, s, bs, pool = cfg_p["batch"], cfg_p["seq_len"], cfg_p["block"], cfg_p["kv_blocks"]
+    half = b_n // 2  # slots [half, b_n) attach slot 0's prefix
+    # a slot of the first half is parked through the decode steps and
+    # another freed and re-prefilled (the attached slot when there is one
+    # slot a half)
+    parked, again = (half - 1, 2) if b_n > 2 else (None, 1)
+    flow = {"logits": {}, "ms": {"chunk": [], "decode": []}, "parked": parked,
+            "again": again, "half": half}
+    out = flow["logits"]
+
+    def run(label, kind, fn):
+        return _dispatch(torch, flow, step_done, label, kind, fn)
+
+    def expect(free, cows, what):
+        require((sess.blocks_free, sess.cow_copies) == (free, cows),
+                f"paged {what}: {sess.blocks_free} free blocks and {sess.cow_copies} copies, "
+                f"predicted {free} and {cows}")
+
+    two = blocks_for_rows(2 * s, bs)
+    run("chunk 0", "chunk", lambda: sess.prefill_chunks(
+        {b: (prompts[b: b + 1, :s], 0) for b in range(b_n)}))
+    expect(pool - b_n * blocks_for_rows(s, bs), 0, "after chunk 0")
+    run("chunk 1", "chunk", lambda: sess.prefill_chunks(
+        {b: (prompts[b: b + 1, s: 2 * s], s) for b in range(b_n)}))
+    expect(pool - b_n * two, 0, "after chunk 1")
+    # half the slots start again from the first shared_rows rows of slot
+    # 0's chain; their tail chunk overwrites (copies) the shared blocks
+    # past row s and allocates the rest
+    shared = blocks_for_rows(cfg_p["shared_rows"], bs)
+    chain = sess.block_chain(0)[:shared]
+    for b in range(half, b_n):
+        sess.free_slot(b)
+        sess.attach_prefix(b, chain, cfg_p["shared_rows"])
+    expect(pool - half * two, 0, "after the attach")
+    # each attached slot copies its shared blocks past row s and allocates
+    # the rest of its two chunks; blocks [0, s / bs) stay shared with slot 0
+    n_att, own = b_n - half, s // bs
+    cows = n_att * (shared - own)
+    run("shared tail", "chunk", lambda: sess.prefill_chunks(
+        {b: (prompts[b: b + 1, s: 2 * s], s) for b in range(half, b_n)}))
+    expect(pool - half * two - n_att * (two - own), cows, "after the shared tails")
+    act = torch.ones(b_n, dtype=torch.bool)
+    if parked is not None:
+        act[parked] = False
+    cur = out["chunk 1"].clone()
+    cur[half:] = out["shared tail"][half:]
+    for step in range(cfg_p["steps"]):
+        if step == cfg_p["free_at"]:
+            sess.free_slot(again)
+            lg = run("re-prefill", "chunk",
+                     lambda: sess.prefill_chunks({again: (fresh, 0)}))
+            cur[again] = lg[again]
+        tok = torch.argmax(cur[:, -1], dim=-1).to(torch.int32)
+        cur = run(f"decode {step}", "decode",
+                  lambda tok=tok: sess.decode(tok, active=act.numpy()))
+    steps, free_at = cfg_p["steps"], cfg_p["free_at"]
+    chains = [blocks_for_rows(2 * s + steps, bs)] * b_n
+    chains[again] = blocks_for_rows(s + steps - free_at, bs)
+    if parked is not None:
+        chains[parked] = two
+    # the slots still attached share blocks [0, s / bs) with slot 0
+    attached = n_att - (again >= half)
+    expect(pool - sum(chains) + attached * own, cows, "after the decode steps")
+    return flow
+
+
+def dense_flow(torch, sess, prompts, fresh, cfg_p: dict, step_done, parked, again) -> dict:
+    """The same prompts over the dense region: prefill, teacher forcing of
+    the second chunk, then the same decode steps and re-admission."""
+    s = cfg_p["seq_len"]
+    flow = {"logits": {}, "ms": {"chunk": [], "decode": []}}
+    out = flow["logits"]
+
+    def run(label, kind, fn):
+        return _dispatch(torch, flow, step_done, label, kind, fn)
+
+    run("chunk 0", "chunk", lambda: sess.prefill(prompts[:, :s]))
+    for t in range(s, 2 * s):
+        lg = sess.decode(prompts[:, t])
+        step_done("teacher forcing", "decode")
+    out["chunk 1"] = out["shared tail"] = lg
+    cur = lg.clone()
+    for step in range(cfg_p["steps"]):
+        if step == cfg_p["free_at"]:
+            lg = run("re-prefill", "chunk", lambda: sess.prefill_slot(again, fresh))
+            cur[again] = lg[0]
+        tok = torch.argmax(cur[:, -1], dim=-1).to(torch.int32)
+        cur = run(f"decode {step}", "decode", lambda tok=tok: sess.decode(tok))
+    return flow
+
+
+def _rows(label: str, flow: dict, batch: int):
+    """The lanes a label's logits are meaningful for."""
+    if label == "shared tail":
+        return list(range(flow["half"], batch))
+    if label == "re-prefill":
+        return [flow["again"]]
+    return [b for b in range(batch) if b != flow["parked"]]
+
+
+def compare_flows(torch, ref: dict, other: dict, batch: int, what: str) -> None:
+    """Equal logits at every label, on the rows that carry them."""
+    for label, lg in ref["logits"].items():
+        rows = _rows(label, ref, batch)
+        got = other["logits"][label]
+        if label == "re-prefill" and got.shape[0] == 1:  # a dense prefill_slot
+            want = lg[rows]
+        else:
+            want, got = lg[rows], got[rows]
+        require(torch.equal(want.cpu(), got.cpu()), f"paged: {what} differ at {label}")
+
+
+def paged_phase(torch, card: str, dev) -> dict[str, int]:
+    """OLMo-1B over a paged KV region on both backends, against each other,
+    the dense pair and (short prompt) the CPU."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.deploy import api
+    from repro_torch.deploy.memory import kv_pool_bytes
+
+    cfg = get_config("olmo-1b")
+    wrappers = kernels.wrappers()
+    launches = dict.fromkeys(wrappers, 0)
+    on_card = None if dev.type == "cuda" else dev
+    p = PAGED
+    gemm_per_chunk = 7 * cfg.n_layers
+
+    def counter(backend, plan_kind):
+        def step_done(label, kind):
+            got = {name: w.launches for name, w in wrappers.items()}
+            gemm = gemm_per_chunk if (backend == "ita" and kind == "chunk") else 0
+            want = {name: gemm if name == "int8_gemm" else 0 for name in wrappers}
+            require(got == want, f"{plan_kind} {backend} {label}: launches {got}, expected {want}")
+            for name, n in got.items():
+                launches[name] += n
+            for w in wrappers.values():
+                w.launches = 0
+        return step_done
+
+    def compile_pair(backend, cp, paged):
+        kw = dict(backend=backend, seq_len=cp["seq_len"], max_len=cp["max_len"],
+                  use_cache=False)
+        if paged:
+            kw.update(kv_block_size=cp["block"], kv_blocks=cp["kv_blocks"], prefix_cache=True)
+        return api.compile(cfg, **kw)
+
+    t0 = time.perf_counter()
+    _, qp = compile_pair("ita", p, True).bind(seed=SEED)
+    log(f"  weights drawn and quantized (seed {SEED}) in {time.perf_counter() - t0:.1f}s; pool "
+        f"{kv_pool_bytes(p['kv_blocks'], p['block'], cfg.n_kv_heads, cfg.head_dim, cfg.n_layers)}"
+        f" bytes ({p['kv_blocks']} blocks of {p['block']} rows and the scratch block)")
+    gen = torch.Generator().manual_seed(SEED + 1)
+    s, b_n = p["seq_len"], p["batch"]
+    prompts = torch.randint(0, cfg.vocab, (b_n, 2 * s), generator=gen, dtype=torch.int32)
+    prompts[b_n // 2:, : p["shared_rows"]] = prompts[0, : p["shared_rows"]]
+    fresh = torch.randint(0, cfg.vocab, (1, s), generator=gen, dtype=torch.int32)
+    prompts, fresh = prompts.to(dev), fresh.to(dev)
+
+    flows = {}
+    for be in ("ita", "w8a8"):
+        for paged in (True, False):
+            model = compile_pair(be, p, paged)
+            sess = model.session(b_n, qp=qp, device=on_card)
+            require(sess.device == dev and sess.paged == paged, f"{be} session")
+            # warm-up (cuBLAS handles, RoPE tables, scale caches), then afresh
+            sess.decode(_greedy(torch, sess.prefill(prompts[:, :s])))
+            for b in range(b_n):
+                sess.free_slot(b)
+            for w in wrappers.values():
+                w.launches = 0
+            kind = "paged" if paged else "dense"
+            step_done = counter(be, kind)
+            if paged:
+                flows[(be, kind)] = paged_flow(torch, sess, prompts, fresh, p, step_done)
+                # the scratch block (physical block 0) is left out: parked
+                # lanes write their rows there, and where two lanes hit one
+                # row the card keeps either
+                flows[(be, "pool")] = {k: t[:, 1:].clone() for k, t in sess.kv_pool.items()}
+            else:
+                ref = flows[(be, "paged")]
+                flows[(be, kind)] = dense_flow(torch, sess, prompts, fresh, p, step_done,
+                                               ref["parked"], ref["again"])
+            del sess
+            torch.cuda.empty_cache()
+    ref = flows[("w8a8", "paged")]
+    compare_flows(torch, ref, flows[("ita", "paged")], b_n, "ita and w8a8 paged logits")
+    for part in ("k", "v"):
+        require(torch.equal(flows[("ita", "pool")][part], flows[("w8a8", "pool")][part]),
+                f"paged: ita and w8a8 {part} pools differ")
+    for be in ("ita", "w8a8"):
+        compare_flows(torch, flows[(be, "paged")], flows[(be, "dense")], b_n,
+                      f"{be} paged and dense logits")
+    half = ref["half"]
+    require(torch.equal(ref["logits"]["shared tail"][half:], ref["logits"]["chunk 1"][half:]),
+            "paged: the shared-prefix slots differ from the same prompts prefilled unshared")
+    n_steps = p["steps"]
+    log(f"  [paged] logits: ita == w8a8 == the dense pair at both chunks and all {n_steps} "
+        f"decode steps (rows of the {b_n - 1} active slots), the re-prefilled slot included; "
+        f"the {b_n - half} slots that attached {p['shared_rows']} shared rows equal the same "
+        f"prompts prefilled unshared; ita and w8a8 pools equal (but for the scratch block)")
+    for be in ("ita", "w8a8"):
+        pg, dn = flows[(be, "paged")]["ms"], flows[(be, "dense")]["ms"]
+        log(f"  [paged] olmo-1b ({be}): chunk of {b_n}x{s} {pg['chunk'][0]:.3f} / "
+            f"{pg['chunk'][1]:.3f} ms (dense prefill {dn['chunk'][0]:.3f} ms); decode step "
+            f"median {statistics.median(pg['decode']):.3f} ms (dense "
+            f"{statistics.median(dn['decode']):.3f} ms); int8_gemm "
+            f"{gemm_per_chunk if be == 'ita' else 0} launches a chunk, no kernel a decode "
+            f"step; on {card}")
+    log(f"  [paged] copy-on-write copies {(b_n - half) * (-(-p['shared_rows'] // p['block']) - s // p['block'])}"
+        f" and free blocks as predicted at every stage")
+    del flows
+
+    # the card against the CPU, full width and depth, short prompt
+    c = PAGED_CPU
+    prompts = torch.randint(0, cfg.vocab, (c["batch"], 2 * c["seq_len"]), generator=gen,
+                            dtype=torch.int32)
+    prompts[c["batch"] // 2:, : c["shared_rows"]] = prompts[0, : c["shared_rows"]]
+    fresh = torch.randint(0, cfg.vocab, (1, c["seq_len"]), generator=gen, dtype=torch.int32)
+    runs = {}
+    for label, be, device in (("card", "ita", on_card), ("card", "w8a8", on_card),
+                              ("cpu", "w8a8", "cpu")):
+        sess = compile_pair(be, c, True).session(c["batch"], qp=qp, device=device)
+        t0 = time.perf_counter()
+        dv = sess.device
+        flow = paged_flow(torch, sess, prompts.to(dv), fresh.to(dv), c,
+                          counter(be, "paged short") if dv.type == "cuda" else
+                          (lambda label, kind: None))
+        flow["pool"] = {k: t[:, 1:].cpu() for k, t in sess.kv_pool.items()}  # no scratch
+        runs[(be, label)] = flow
+        log(f"  [paged] short prompt {c['batch']}x{2 * c['seq_len']} + {c['steps']} steps, {be} "
+            f"on {dv.type}: {time.perf_counter() - t0:.1f}s")
+    cpu = runs[("w8a8", "cpu")]
+    for key in (("ita", "card"), ("w8a8", "card")):
+        compare_flows(torch, cpu, runs[key], c["batch"], f"{key[0]} card and CPU")
+        for part in ("k", "v"):
+            require(torch.equal(runs[key]["pool"][part], cpu["pool"][part]),
+                    f"paged: {key[0]} card and CPU {part} pools differ (short prompt)")
+    log("  [paged] short prompt: the card equals the CPU on both backends (logits at every "
+        "step, K and V pools but for the scratch block)")
+    for w in wrappers.values():
+        w.launches = 0
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -794,6 +1199,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
+
+    start = time.perf_counter()
+
+    def phase(msg: str) -> None:
+        log(f"{msg} (at {time.perf_counter() - start:.1f}s)")
 
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -811,27 +1221,37 @@ def main() -> int:
     pointwise_sass(_build)
 
     gen = torch.Generator().manual_seed(SEED)
-    log("[kernels] the plain path's integer product against the CPU's int32 product")
+    phase("[kernels] the plain path's integer product against the CPU's int32 product")
     dev = torch.device("cuda")
     exact_product_phase(torch, gen, dev)
-    log("[kernels] each kernel against its plain version (exact)")
+    int_mm_depth_phase(torch, dev)
+    phase("[kernels] each kernel against its plain version (exact)")
     kernels = kernel_phase(torch, gen, dev)
     for k in kernels:
         log(f"  {k['name']}: {k['ms']:.4f} ms on the card, plain {k['plain_ms']:.4f} ms on "
             f"the card, bound {k['bound_ms']:.5f} ms ({k['bound_by']}), library "
             f"{k['library_ms']} ms; {k['work']}")
 
-    log("[slice] compile -> session(8) -> forward on the card, vs the CPU forward "
+    phase("[slice] compile -> session(8) -> forward on the card, vs the CPU forward "
         "(ita, w8a8, DeiT-Ti widths on ita)")
     launches = slice_phase(torch, card, dev)
-    log("[decoder] OLMo-1B at full width: compile -> session(8) -> prefill + 16 decode "
+    phase("[decoder] OLMo-1B at full width: compile -> session(8) -> prefill + 16 decode "
         "steps on the card, ita vs w8a8 vs the model chain, and the card vs the CPU")
     for name, n in decoder_phase(torch, card, dev).items():
+        launches[name] += n
+    phase("[head-by-head] the paper's per-head schedule: compile(head_by_head=True) -> "
+        "session(8) -> forward on the card (ita, w8a8), vs the CPU forward")
+    for name, n in head_by_head_phase(torch, card, dev).items():
+        launches[name] += n
+    phase("[paged] OLMo-1B over a paged, prefix-shared KV region: chunks, attach, decode with "
+        "a parked slot, free and re-prefill, on ita and w8a8 vs the dense pair and the CPU")
+    for name, n in paged_phase(torch, card, dev).items():
         launches[name] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]
         require(k["launches"] > 0, f"{k['name']} was never launched on the main path")
 
+    phase("[done]")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

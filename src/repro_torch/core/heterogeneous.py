@@ -9,11 +9,10 @@ rowwise softmax is the ``itamax`` kernel on the card), and the cluster
 the plain PyTorch integer operators.
 
 ``DEFAULT_TABLE`` holds the encoder's kinds (gemm, mha, softmax, gelu,
-layernorm, add, embed, classifier, dequant) and the dense decoder's
-cluster kinds (rope, attn_causal, attn_cached, cache_write, silumul,
-lasttok, lmhead).  A plan node of any other kind (the paged KV region's
-``cache_write_paged`` / ``attn_paged``, the head-by-head ``headaccum``)
-fails at bind time.
+layernorm, add, embed, headaccum, classifier, dequant), the dense
+decoder's cluster kinds (rope, attn_causal, attn_cached, cache_write,
+silumul, lasttok, lmhead) and the paged KV region's (cache_write_paged,
+attn_paged).  A plan node of any other kind fails at bind time.
 """
 
 from __future__ import annotations
@@ -147,6 +146,7 @@ def populate_default_table(table: DispatchTable | None = None) -> DispatchTable:
       layernorm:  fn(kind, pq, x_q, s_gamma, s_out) -> int8
       add:        fn(a_q, b_q, *, scales) -> int8
       embed:      fn(table_q, tokens) -> int8
+      headaccum:  fn(parts, bias_q | None, *, scales) -> int8  (int32 partials)
       classifier: fn(h_q, table_q, *, scale) -> float32
       dequant:    fn(h_q, *, scale) -> float32
 
@@ -165,11 +165,22 @@ def populate_default_table(table: DispatchTable | None = None) -> DispatchTable:
       lasttok:     fn(x_q) -> int8 (last sequence position)
       lmhead:      fn(h_q, w_q, *, scale, tied) -> float32
 
-    Positions (``positions``, ``pos``) are host data: an int, a numpy
-    array or a CPU tensor.  ``cache_write`` on decode writes the session's
-    cache in place (the plan aliases ``cache_out`` to ``cache_in``) and
-    returns it; a row past ``max_len`` raises, where the reference's
-    ``dynamic_update_slice`` would clamp the start.
+    Paged KV region (one shared block pool per layer, ``[P+1, Hkv,
+    block_size, D]``, physical block 0 the scratch block, and a block
+    table per request slot):
+
+      cache_write_paged: fn(kv, pool, pos, table, active | None, *,
+                            kv_heads, head_dim, block_size) -> int8 pool
+      attn_paged:  fn(q, k_pool, v_pool, pos, table, *, heads, kv_heads,
+                      head_dim, s_act, s_out, block_k) -> int8 [B, S, H*D]
+
+    Positions (``positions``, ``pos``) and the ``active`` lane mask are
+    host data: an int, a numpy array or a CPU tensor; a block table may
+    lie on the pool's device (the session copies it there once a step).
+    ``cache_write`` on decode and ``cache_write_paged`` write the
+    session's cache or pool in place (the plan aliases each output to its
+    input) and return it; a dense row past ``max_len`` raises, where the
+    reference's ``dynamic_update_slice`` would clamp the start.
     """
     table = DEFAULT_TABLE if table is None else table
 
@@ -257,6 +268,24 @@ def populate_default_table(table: DispatchTable | None = None) -> DispatchTable:
 
     table.register("add", Engine.CLUSTER, _iadd)
     table.register("embed", Engine.CLUSTER, lambda table_q, tokens: table_q[tokens.long()])
+
+    def _head_accum(parts, bias_q, *, scales):
+        # the model path's arithmetic: int32 sum of the per-head partial
+        # output projections, one requant, then the bias, requantized on
+        # its own and added after the first requant
+        s_in, s_w, s_out = scales
+        acc = i32(parts[0])
+        for p in parts[1:]:
+            acc = acc + i32(p)
+        qp_o = make_qparams(s_in, s_w, s_out)
+        out = requantize(acc, qp_o.mult, qp_o.shift)
+        if bias_q is not None:
+            qb = make_qparams(s_in, 1.0, s_out)
+            out = requantize(i32(out) + i32(requantize(bias_q, qp_o.mult, qp_o.shift)),
+                             qb.mult, qb.shift)
+        return out
+
+    table.register("headaccum", Engine.CLUSTER, _head_accum)
     table.register("classifier", Engine.CLUSTER,
                    lambda h_q, table_q, *, scale: L.classifier_f32(h_q, table_q, scale))
     table.register("dequant", Engine.CLUSTER,
@@ -339,6 +368,75 @@ def populate_default_table(table: DispatchTable | None = None) -> DispatchTable:
         return cache
 
     table.register("cache_write", Engine.CLUSTER, _cache_write)
+
+    # -- paged KV region: a shared block pool per layer [P+1, Hkv,
+    # block_size, D] and a block table per slot.  Physical block 0 is the
+    # scratch block (deploy.paging.SCRATCH_BLOCK): unallocated table
+    # entries and inactive lanes route there, so a batched dispatch can
+    # carry parked lanes without touching any live slot's rows.
+    def _table(table_q, b, device):
+        t = torch.as_tensor(table_q).to(device=device, dtype=torch.long)
+        if t.dim() == 1:
+            t = t[None]
+        return t.expand(b, t.shape[-1])
+
+    def _lane_rows(pos, b, s):
+        """Host [B, S] global rows ``pos + i`` of each lane's queries."""
+        pos = np.broadcast_to(_host(pos).reshape(-1), (b,))
+        return pos[:, None] + np.arange(s)[None]
+
+    def _cache_write_paged(kv_m, pool, pos, table_q, active=None, *,
+                           kv_heads, head_dim, block_size):
+        from repro_torch.deploy.paging import SCRATCH_BLOCK
+
+        kh = _split(kv_m, kv_heads, head_dim)  # [B, Hkv, S, D]
+        b, _, s, _ = kh.shape
+        table = _table(table_q, b, pool.device)
+        rows = _lane_rows(pos, b, s)
+        live = np.ones((b, 1), bool) if active is None else \
+            _host(active).astype(bool).reshape(-1, 1)
+        # a parked lane's rows may lie past its table (any depth is legal
+        # there): its logical block is clipped before the gather, and the
+        # lane writes to scratch whatever the gather gives
+        logical = np.clip(rows // block_size, 0, table.shape[1] - 1)
+        idx = torch.from_numpy(np.stack([logical, rows % block_size,
+                                         np.broadcast_to(live, rows.shape)]))
+        idx = idx.to(pool.device)  # one copy to the device
+        phys = torch.where(idx[2].bool(), table.gather(1, idx[0]), SCRATCH_BLOCK)
+        # one scatter; live lanes' (block, row) targets are unique (the
+        # allocator never maps one block to two writers), repeated
+        # targets fall only in the scratch block, whose rows are don't-care
+        vals = kh.permute(0, 2, 1, 3).reshape(b * s, kv_heads, head_dim)
+        pool[phys.reshape(-1), :, idx[1].reshape(-1), :] = vals
+        return pool
+
+    table.register("cache_write_paged", Engine.CLUSTER, _cache_write_paged)
+
+    def _attn_paged(q_m, k_pool, v_pool, pos, table_q, *, heads, kv_heads,
+                    head_dim, s_act, s_out, block_k):
+        p = MhaQParams.make_flash(s_act, s_act, s_act, s_out, max(head_dim, 1))
+        qh = _split(q_m, heads, head_dim)  # [B, H, S, D]
+        b, _, s, _ = qh.shape
+        table = _table(table_q, b, k_pool.device)
+        # the slot's logical cache is its blocks in table order, [B, Hkv,
+        # nb * block_size, D]; rows past the valid prefix (scratch or stale
+        # blocks) are masked below, and a fully masked flash update is
+        # bit-neutral, so the gathered width does not change the ints
+        kg = k_pool[table].permute(0, 2, 1, 3, 4).reshape(b, kv_heads, -1, head_dim)
+        vg = v_pool[table].permute(0, 2, 1, 3, 4).reshape(b, kv_heads, -1, head_dim)
+        rows = kg.shape[2]
+        # query i sits at global row pos + i and attends rows [0, pos + i]:
+        # causality at a chunk offset as a per-query kv_len bound, so decode
+        # (S = 1) and chunked prefill share one runner
+        kv_len = torch.from_numpy((_lane_rows(pos, b, s) + 1).astype(np.int32))
+        bk = min(block_k, rows)
+        if rows % bk:
+            bk = rows  # the reference's fallback: the flash result depends on it
+        out = attention_decode_i8(qh, kg, vg, kv_len.to(q_m.device)[:, None, :, None], p,
+                                  block_k=bk)
+        return _merge(out)
+
+    table.register("attn_paged", Engine.CLUSTER, _attn_paged)
 
     def _silu_mul(g_q, u_q, *, scales):
         s_g, s_u, s_out = scales

@@ -8,15 +8,17 @@ operators — as ``ita_supports`` decides.
 
 Contract: ``execute(plan, bind_encoder_weights(...), batch, backend=b)``
 equals the JAX package's ``execute`` on the same ints, element for
-element, on both backends, and so do ``execute_prefill`` /
-``execute_decode`` of a :class:`DecoderPlanPair` (logits, K and V caches
-and ``len`` at every step).  PyTorch runs eagerly: the bound program is
-a tuple of closures walked in schedule order, and a fused region is its
+element, on both backends (the fused MHA and the paper's head-by-head
+schedule alike), and so do ``execute_prefill`` / ``execute_decode`` of a
+:class:`DecoderPlanPair` (logits, K and V caches and ``len`` at every
+step) and ``execute_prefill_paged`` / ``execute_decode_paged`` of a paged
+one (logits and pools).  PyTorch runs eagerly: the bound program is a
+tuple of closures walked in schedule order, and a fused region is its
 body's closures run in order inside one call.
 
-Unlike the reference, ``execute_decode`` writes the cache it is given in
-place (the plan aliases each ``cache_out`` to its ``cache_in``): it
-returns the same tensors, advanced by one row per request.
+Unlike the reference, ``execute_decode`` and the paged executors write
+the cache or pool they are given in place (the plan aliases each output
+to its input): they return the same tensors.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from repro_torch.core.heterogeneous import (
 from repro_torch.core.quant_linear import ACT_GELU, ACT_IDENTITY, ACT_RELU
 from repro_torch.deploy.patterns import opdesc_from_attrs
 from repro_torch.deploy.plan import DecoderPlanPair, DeploymentPlan, PlanNode
+from repro_torch.quant.qparams import imatmul
 
 #: fused-activation vocabulary the GEMM runner can lower
 _GEMM_ACTS = {"identity": ACT_IDENTITY, "relu": ACT_RELU, "gelu": ACT_GELU}
@@ -142,9 +145,43 @@ def _compile_mha(node: PlanNode, table, backend) -> Callable:
     return run
 
 
+def _compile_mha_head(node: PlanNode, table, backend) -> Callable:
+    """One head of the paper's schedule: per-head Q/K/V projection slices,
+    single-head attention, and the *raw int32* partial output projection
+    (the cluster HeadAccum requantizes once, after summing every head)."""
+    a = node.attrs
+    s, e = a["seq"], a["d_model"]
+    h, hkv, hd = a["heads"], a["kv_heads"], a["head_dim"]
+    head = a["head"]
+    kvh = head // (h // hkv)
+    proj = tuple(a["proj_scales"])
+    outp = tuple(a["out_scales"])
+    g = backend_granule(backend)
+
+    gemm_h = _resolve(table, _gemm_desc(s, e, hd, g), backend)
+    attn = _resolve(table, _mha_desc(s, hd, g), backend)
+
+    def slc(w, b, idx):
+        lo = idx * hd
+        return w[:, lo: lo + hd], None if b is None else b[lo: lo + hd]
+
+    def run(env):
+        x = env[node.inputs[0]]
+        wq, wk, wv, wo, bq, bk, bv, bo = _mha_weights(node, env)
+        q1 = gemm_h(x, *slc(wq, bq, head), scales=proj, act=ACT_IDENTITY, s_preact=None)
+        k1 = gemm_h(x, *slc(wk, bk, kvh), scales=proj, act=ACT_IDENTITY, s_preact=None)
+        v1 = gemm_h(x, *slc(wv, bv, kvh), scales=proj, act=ACT_IDENTITY, s_preact=None)
+        a1 = attn(q1[:, None], k1[:, None], v1[:, None], s_act=proj[2], s_out=outp[0])
+        # the exact integer product (int32, as the reference's
+        # preferred_element_type=int32), never an int8 matmul
+        return imatmul(a1[:, 0], wo[head * hd: (head + 1) * hd])
+
+    return run
+
+
 def _compile_cluster(node: PlanNode, table, backend) -> Callable:
-    """Bind one cluster-engine node (the encoder's kinds and the dense
-    decoder's)."""
+    """Bind one cluster-engine node (the encoder's kinds, the head
+    accumulation, and the dense and paged decoder's)."""
     kind = node.kind
     a = node.attrs
     # The node's description is the plan's own (rows padded to the granule,
@@ -177,6 +214,16 @@ def _compile_cluster(node: PlanNode, table, backend) -> Callable:
         return lambda env: fn(env[ins[0]], s_in=s_in, s_out=s_out)
     if kind == "embed":
         return lambda env: fn(env[ins[0]], env[ins[1]])
+    if kind == "headaccum":
+        h = a["heads"]
+        out_scales = tuple(a["out_scales"])
+        bias_t = ins[h] if len(ins) > h else None
+
+        def run(env):
+            bias = env[bias_t] if bias_t is not None else None
+            return fn([env[t] for t in ins[:h]], bias, scales=out_scales)
+
+        return run
     if kind == "classifier":
         scale = a["scale"]
         return lambda env: fn(env[ins[0]], env[ins[1]], scale=scale)
@@ -186,9 +233,23 @@ def _compile_cluster(node: PlanNode, table, backend) -> Callable:
     # decoder / KV-cache kinds
     if kind == "rope":
         kw = dict(heads=a["heads"], head_dim=a["head_dim"], theta=a["theta"])
+        rows = a["dims"][0]
         if len(ins) <= 1:
-            positions = np.arange(a["dims"][0])  # prefill: static 0..S
+            positions = np.arange(rows)  # prefill: static 0..S
             return lambda env: fn(env[ins[0]], positions, **kw)
+        if rows > 1:
+            # a paged prefill chunk: S absolute angles at each lane's offset
+            # (a scalar pos shifts every lane alike, a [B] vector each lane)
+            def run(env):
+                pos = env[ins[1]]
+                pos = np.asarray(pos.cpu() if isinstance(pos, torch.Tensor) else pos, np.int64)
+                if pos.size == 1:
+                    positions = pos.reshape(()) + np.arange(rows)
+                else:
+                    positions = pos.reshape(-1)[:, None] + np.arange(rows)
+                return fn(env[ins[0]], positions, **kw)
+
+            return run
         return lambda env: fn(env[ins[0]], env[ins[1]], **kw)
     if kind == "attn_causal":
         kw = dict(heads=a["heads"], kv_heads=a["kv_heads"], head_dim=a["head_dim"],
@@ -207,6 +268,20 @@ def _compile_cluster(node: PlanNode, table, backend) -> Callable:
             cache = env[cache_t] if cache_t is not None else None
             pos = env[pos_t] if pos_t is not None else None
             return fn(env[ins[0]], cache, pos, **kw)
+
+        return run
+    if kind == "attn_paged":
+        kw = dict(heads=a["heads"], kv_heads=a["kv_heads"], head_dim=a["head_dim"],
+                  s_act=a["s_act"], s_out=a["s_out"], block_k=a["block_k"])
+        return lambda env: fn(env[ins[0]], env[ins[1]], env[ins[2]], env[ins[3]],
+                              env[ins[4]], **kw)
+    if kind == "cache_write_paged":
+        kw = dict(kv_heads=a["kv_heads"], head_dim=a["head_dim"], block_size=a["block_size"])
+        active_t = ins[4] if len(ins) > 4 else None
+
+        def run(env):
+            active = env[active_t] if active_t is not None else None
+            return fn(env[ins[0]], env[ins[1]], env[ins[2]], env[ins[3]], active, **kw)
 
         return run
     if kind == "silumul":
@@ -243,7 +318,7 @@ def _compile_node(node: PlanNode, table, backend) -> Callable:
         return _compile_gemm(node, table, backend)
     if node.kind == "mha":
         if node.op == "MHAHead":
-            raise NotImplementedError(f"{node.name}: the head-by-head schedule is not ported yet")
+            return _compile_mha_head(node, table, backend)
         return _compile_mha(node, table, backend)
     return _compile_cluster(node, table, backend)
 
@@ -505,3 +580,73 @@ def execute_decode(
     logits = execute(plan, weights, batch, backend=backend, table=table)[0]
     # every cache_write wrote its layer's view of cache["k"] / cache["v"]
     return logits, {"k": cache["k"], "v": cache["v"], "len": torch.as_tensor(pos + 1)}
+
+
+# ---------------------------------------------------------------------------
+# Paged decoder plans: pool-threading executors
+# ---------------------------------------------------------------------------
+
+
+def _paged_batch(plan: DeploymentPlan, pool: dict, extra: dict) -> dict:
+    """The plan's inputs: ``extra`` plus one view per layer of the session
+    pool ``{"k": [L, P+1, Hkv, block_size, D], "v": ...}``."""
+    batch = dict(extra)
+    for i, (cin, _) in enumerate(plan.kv_state):
+        batch[cin] = pool["k" if i % 2 == 0 else "v"][i // 2]
+    return batch
+
+
+def execute_prefill_paged(
+    pair: DecoderPlanPair,
+    weights: dict,
+    pool: dict,
+    tokens,
+    start,
+    block_table,
+    *,
+    backend: Backend | str = Backend.W8A8,
+    table: DispatchTable | None = None,
+):
+    """Run one chunk of the paged prefill schedule.
+
+    ``tokens`` int32 [B, S] (S = the lowered prompt length), ``start`` the
+    chunk's global token offset (host data: a scalar, or a [B] vector of
+    per-lane offsets), ``block_table`` int32 [B, blocks_per_slot] (on the
+    pool's device).  Writes rows ``[start, start + S)`` of each lane's
+    logical cache through its block table, in place, and returns
+    ``(last-token logits, pool)``.
+    """
+    plan = pair.prefill
+    batch = _paged_batch(plan, pool, {"tokens": tokens, "pos": start,
+                                      "block_table": block_table})
+    # every cache_write_paged wrote its layer's view of the pool in place:
+    # the pool given is the pool after the chunk (the reference stacks the
+    # layers' outputs into a new one)
+    return execute(plan, weights, batch, backend=backend, table=table)[0], pool
+
+
+def execute_decode_paged(
+    pair: DecoderPlanPair,
+    weights: dict,
+    pool: dict,
+    token,
+    pos,
+    block_table,
+    active,
+    *,
+    backend: Backend | str = Backend.W8A8,
+    table: DispatchTable | None = None,
+):
+    """Advance one token per active lane through the paged decode schedule.
+
+    ``pos`` int32 [B] per-lane depths and ``active`` bool/int32 [B] (host
+    data), ``block_table`` int32 [B, blocks_per_slot] (on the pool's
+    device).  Inactive lanes (free slots, slots mid-chunked-prefill) ride
+    in the dispatch, since the batch shape is static, but write into the
+    scratch block; the caller discards their logits.  The pool is written
+    in place; returns ``(logits, pool)``.
+    """
+    plan = pair.decode
+    batch = _paged_batch(plan, pool, {"token": token, "pos": pos,
+                                      "block_table": block_table, "active": active})
+    return execute(plan, weights, batch, backend=backend, table=table)[0], pool

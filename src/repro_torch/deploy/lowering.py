@@ -19,8 +19,8 @@ QKV -> RoPE -> cache write -> causal/cached GQA attention -> O -> Add ->
 Norm -> SwiGLU or fused-GELU MLP -> Add], final norm and the (tied) LM
 head, lowered twice per config into a :class:`DecoderPlanPair` — a
 prefill and a single-token decode schedule sharing one persistent KV
-region.  The paged KV region (``kv_blocks > 0``) waits for ROADMAP queue
-1, item 3; families other than ``encoder`` and dense decoders raise
+region, dense per-slot strips or a paged block pool (``kv_blocks > 0``).
+Families other than ``encoder`` and dense decoders raise
 :class:`UnsupportedFamilyError`.
 """
 
@@ -201,16 +201,22 @@ def build_runtime_decoder_graph(
     cache_out)`` pairs — prefill creates the caches, decode consumes and
     in-place-updates them.
 
-    ``kv_blocks > 0`` (the paged variant of the JAX package) raises
-    ``NotImplementedError``: paging is ROADMAP queue 1, item 3.
+    ``kv_blocks > 0`` lowers the **paged** variant: the per-slot cache
+    strips become shared block pools (``(kv_blocks + 1, Hkv,
+    kv_block_size, D)``; block 0 is scratch, :mod:`repro_torch.deploy.paging`)
+    that are persistent, in-place-updated inputs of *both* phases, cache
+    maintenance and attention become block-table-driven ``CacheWritePaged``
+    / ``AttnPaged`` nodes, and the prefill schedule gains a ``pos`` chunk
+    offset so the same static S-token schedule re-runs at offsets ``0, S,
+    2S, ...`` (chunked prefill).  The decode schedule also takes an
+    ``active`` lane mask: inactive lanes of a batched dispatch write into
+    the scratch block instead of anyone's live rows.
     """
     if phase not in ("prefill", "decode"):
         raise ValueError(f"unknown decoder phase {phase!r}")
     if not (cfg.vocab and cfg.n_heads):
         raise NotImplementedError(f"decoder lowering needs a token LM; got {cfg.name}")
-    if kv_blocks > 0:
-        raise NotImplementedError(
-            "the paged KV region is not ported yet (ROADMAP queue 1, item 3)")
+    paged = kv_blocks > 0
     s = 1 if phase == "decode" else (seq_len or cfg.max_seq)
     cap = max_len or ((seq_len or cfg.max_seq) + 1)
     e, h, hkv, p, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
@@ -246,16 +252,30 @@ def build_runtime_decoder_graph(
     tok = g.add_tensor(tok_name, (s,), dtype="int32")
     g.inputs.append(tok)
     pos_in: list[str] = []
-    if phase == "decode":  # per-request depth
+    if phase == "decode" or paged:
+        # decode: per-request depth; paged prefill: the chunk's global
+        # token offset (RoPE angles and cache-write rows are absolute)
         g.inputs.append(g.add_tensor("pos", (), dtype="int32"))
         pos_in = ["pos"]
+    paged_in: list[str] = []
+    if paged:
+        from repro_torch.deploy.paging import blocks_per_slot
+
+        g.inputs.append(
+            g.add_tensor("block_table", (blocks_per_slot(cap, kv_block_size),),
+                         dtype="int32")
+        )
+        paged_in = ["pos", "block_table"]
+        if phase == "decode":
+            g.inputs.append(g.add_tensor("active", (), dtype="int32"))
+            paged_in.append("active")
     table = g.add_tensor("embed_table", (cfg.vocab_padded, e), weight=True)
     x = g.add_tensor("embed", (s, e))
     g.add_node("Embed", [table, tok], [x], dims=(s, e))
 
     # -- decoder stack
     kv_state: list[tuple[str | None, str]] = []
-    cache_shape = (hkv, cap, p)
+    cache_shape = (kv_blocks + 1, hkv, kv_block_size, p) if paged else (hkv, cap, p)
     for l in range(cfg.n_layers):
         pre = f"l{l}_"
         h1 = add_norm(x, pre + "norm1", pre + "ln1", s)
@@ -275,7 +295,20 @@ def build_runtime_decoder_graph(
         kname, vname = pre + "k_cache", pre + "v_cache"
         cache_attrs = dict(dims=cache_shape, kv_heads=hkv, head_dim=p, max_len=cap)
         blk = PREFILL_BLOCK_K if phase == "prefill" else DECODE_BLOCK_K
-        if phase == "prefill":
+        if paged:
+            # shared block pools: persistent inputs, updated in place by a
+            # block-table scatter; attention gathers the slot's blocks
+            cache_attrs["block_size"] = kv_block_size
+            kin = g.add_tensor(kname + "_pool", cache_shape)
+            vin = g.add_tensor(vname + "_pool", cache_shape)
+            g.inputs += [kin, vin]
+            kc = g.add_tensor(kname + "_pool_new", cache_shape)
+            g.add_node("CacheWritePaged", [kr, kin] + paged_in, [kc], **cache_attrs)
+            vc = g.add_tensor(vname + "_pool_new", cache_shape)
+            g.add_node("CacheWritePaged", [vm, vin] + paged_in, [vc], **cache_attrs)
+            kv_state += [(kin, kc), (vin, vc)]
+            att_in, att_op = [qr, kc, vc, "pos", "block_table"], "AttnPaged"
+        elif phase == "prefill":
             kc = g.add_tensor(kname, cache_shape)
             g.add_node("CacheWrite", [kr], [kc], **cache_attrs)
             vc = g.add_tensor(vname, cache_shape)
@@ -387,6 +420,8 @@ def _emit_plan(
     phase: str = "forward",
     max_len: int = 0,
     kv_state: tuple = (),
+    kv_block_size: int = 0,
+    kv_blocks: int = 0,
     persistent: tuple = (),
     aliases: dict | None = None,
 ) -> DeploymentPlan:
@@ -441,6 +476,8 @@ def _emit_plan(
         phase=phase,
         max_len=max_len,
         kv_state=kv_state,
+        kv_block_size=kv_block_size,
+        kv_blocks=kv_blocks,
     ).validate()
 
 
@@ -469,8 +506,9 @@ def lower_decoder(
     prefill GEMMs accelerate, the decode-step M=1 GEMVs fall back to the
     cluster (``pad_m: False``, see ``patterns.node_opdesc``).
 
-    ``kv_blocks > 0`` (the paged KV region) raises
-    ``NotImplementedError``: ROADMAP queue 1, item 3.
+    ``kv_blocks > 0`` plans the **paged** KV region instead: shared
+    block pools + per-slot block tables (see
+    :func:`build_runtime_decoder_graph` and :mod:`repro_torch.deploy.paging`).
 
     ``fuse=True`` runs the region-fusion pass on both schedules after
     tiling/memory planning: contiguous same-engine runs collapse into
@@ -499,6 +537,7 @@ def lower_decoder(
             seq_len=s if phase == "prefill" else 1,
             granule=granule, budget=budget, quant=quant,
             phase=phase, max_len=cap, kv_state=tuple(kv_state),
+            kv_block_size=kv_block_size, kv_blocks=kv_blocks,
             persistent=persistent, aliases=aliases,
         )
         return patterns.fuse_regions(plan, min_nodes=fuse_min_nodes) if fuse else plan
@@ -531,7 +570,9 @@ def lower(
 
     Encoder family: a forward :class:`DeploymentPlan`.  Dense decoders: a
     :class:`DecoderPlanPair` — prefill and decode-step schedules linked
-    through a shared static KV region of ``max_len`` tokens per slot.
+    through a shared static KV region of ``max_len`` tokens per slot:
+    dense per-slot strips by default, or a shared paged block pool when
+    ``kv_block_size`` / ``kv_blocks`` are set.
     """
     if is_dense_decoder(cfg):
         if head_by_head or not include_head:

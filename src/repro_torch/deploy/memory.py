@@ -24,7 +24,15 @@ small language models, arXiv 2408.04413):
   in place; the planner maps an alias onto the exact allocation record
   of its source tensor (same offset, same size).
 
-The paged KV region's pool allocations wait for the paging slice.
+Paged decoder plans (``kv_blocks > 0``) swap the per-slot cache strips
+for **pool-shaped persistent allocations**: one shared block pool per
+layer (``(kv_blocks + 1, Hkv, block_size, D)``, scratch block included,
+see :mod:`repro_torch.deploy.paging`) that is a persistent *input* of
+both the prefill and the decode schedule.  The two plans declare
+identical pool names and sizes, so the pool offsets agree across the pair
+by construction; :func:`shared_persistent_offsets` is the check
+:meth:`DecoderPlanPair.validate` runs, and :func:`kv_pool_bytes` the one
+definition of the pool's arena footprint.
 """
 
 from __future__ import annotations
@@ -189,6 +197,29 @@ def plan_memory(
             allocs[out_name] = allocs[src]
     peak = max((a.offset + a.size for a in allocs.values()), default=0)
     return MemoryPlan(allocs, peak)
+
+
+def kv_pool_bytes(
+    kv_blocks: int,
+    block_size: int,
+    kv_heads: int,
+    head_dim: int,
+    n_layers: int,
+    *,
+    dtype_bytes: int = 1,
+) -> int:
+    """Static arena bytes of the paged KV region (K and V, all layers).
+
+    Counts the scratch block (physical block 0): it is part of the
+    allocation even though the allocator never hands it out.  The dense
+    equivalent is ``2 * n_layers * max_batch * kv_heads * max_len *
+    head_dim * dtype_bytes`` — the pool wins whenever ``(kv_blocks + 1) *
+    block_size < max_batch * max_len``.
+    """
+    from repro_torch.deploy.paging import pool_rows
+
+    rows = pool_rows(kv_blocks, block_size)
+    return 2 * n_layers * kv_heads * rows * head_dim * dtype_bytes
 
 
 def shared_persistent_offsets(

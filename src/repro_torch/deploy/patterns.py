@@ -1,9 +1,11 @@
 """Graph passes: MHA pattern fusion, engine mapping, GELU epilogue fusion.
 
 Mirrors the paper's §IV-D flow: "Deeploy starts by matching an MHA pattern
-and fuses it to form a monolithic node in the graph."  The head split
-(per-head MHA nodes plus a cluster head accumulation) of the JAX package
-is not ported yet.  :func:`fuse_regions` is the plan-level pass that
+and fuses it to form a monolithic node in the graph."  :func:`split_heads`
+then maps the fused MHA onto ITA's single-head datapath: one ``MHAHead``
+node per head, each giving an int32 partial of the output projection,
+and one cluster ``HeadAccum`` that sums them.  :func:`fuse_regions` is the
+plan-level pass that
 collapses same-engine schedule runs of decoder plans into ``FusedRegion``
 mega-nodes.
 
@@ -157,6 +159,55 @@ def fuse_mha(g: Graph) -> Graph:
     return g
 
 
+def split_heads(g: Graph) -> Graph:
+    """MHA -> per-head MHAHead nodes + cluster HeadAccum (ITA is single-head).
+
+    Partial outputs are int32: each head computes its slice of the output
+    projection on ITA and the cluster accumulates the raw accumulators —
+    the paper's schedule (requantization happens once, after the
+    accumulation).
+    """
+    new_nodes: list[Node] = []
+    for n in g.nodes:
+        if n.op != "MHA":
+            new_nodes.append(n)
+            continue
+        h = n.attrs["heads"]
+        s, p = n.attrs["seq"], n.attrs["head_dim"]
+        e = n.attrs["d_model"]
+        partials = []
+        for head in range(h):
+            out = g.add_tensor(f"{n.name}_part{head}", (s, e), dtype="int32")
+            partials.append(out)
+            new_nodes.append(
+                Node(
+                    name=f"{n.name}_h{head}",
+                    op="MHAHead",
+                    inputs=list(n.inputs),
+                    outputs=[out],
+                    attrs={**n.attrs, "head": head, "seq": s, "head_dim": p,
+                           "d_model": e},
+                )
+            )
+        accum_inputs = list(partials)
+        if n.attrs.get("has_bias") and len(n.inputs) >= 9:
+            accum_inputs.append(n.inputs[8])  # output-projection bias
+        accum_attrs = {"dims": (s, e), "heads": h}
+        if "out_scales" in n.attrs:
+            accum_attrs["out_scales"] = n.attrs["out_scales"]
+        new_nodes.append(
+            Node(
+                name=f"{n.name}_accum",
+                op="HeadAccum",
+                inputs=accum_inputs,
+                outputs=list(n.outputs),
+                attrs=accum_attrs,
+            )
+        )
+    g.nodes = new_nodes
+    return g
+
+
 def map_engines(g: Graph, granule: int = ITA_GRANULE) -> Graph:
     """Per-node accelerator-vs-cluster decision (Deeploy's bottom-up rule:
     accelerated when supported, fallback kernel otherwise).
@@ -203,10 +254,10 @@ def fuse_gelu_epilogue(g: Graph) -> Graph:
     return g
 
 
-def deploy_pipeline(g: Graph, head_by_head: bool = False, granule: int = ITA_GRANULE) -> Graph:
-    if head_by_head:
-        raise NotImplementedError("the head-by-head split is not ported yet")
+def deploy_pipeline(g: Graph, head_by_head: bool = True, granule: int = ITA_GRANULE) -> Graph:
     g = fuse_mha(g)
+    if head_by_head:
+        g = split_heads(g)
     g = map_engines(g, granule)
     g = fuse_gelu_epilogue(g)
     return g

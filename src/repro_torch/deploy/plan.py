@@ -9,9 +9,8 @@ module is that artifact for the port: the output of
 schema is the JAX package's, field for field, so a plan written by one
 package loads in the other.  A decoder config lowers to a
 :class:`DecoderPlanPair`: a prefill and a decode-step plan linked through
-one statically planned KV region.  The paged KV region's fields are
-carried for the schema; a paged plan raises until paging is ported
-(ROADMAP queue 1, item 3).
+one statically planned KV region: dense per-slot strips, or a shared
+paged block pool with per-slot block tables.
 """
 
 from __future__ import annotations
@@ -129,8 +128,12 @@ class DeploymentPlan:
     # prefill creates caches (in = None); decode updates them in place
     # (out aliases in at the same static offset).
     kv_state: tuple = ()
-    # paged KV region (0/0: dense per-slot strips; paging is not ported yet,
-    # ROADMAP queue 1 item 3)
+    # paged KV region (0/0: dense per-slot strips).  When kv_blocks > 0
+    # the kv_state tensors are shared block *pools* — persistent inputs of
+    # BOTH phases, shaped (kv_blocks + 1, Hkv, kv_block_size, D) with
+    # physical block 0 reserved as scratch (see repro_torch.deploy.paging)
+    # — and the schedule gains `pos`/`block_table` (+ `active` in decode)
+    # runtime inputs.
     kv_block_size: int = 0
     kv_blocks: int = 0
     # autotuner record: chosen knobs + predicted cost (empty: not autotuned)
@@ -160,12 +163,11 @@ class DeploymentPlan:
         return out
 
     def validate(self) -> "DeploymentPlan":
-        """Check the schedule's dataflow, the fused regions and the KV
-        region's in-place aliases; raise ``ValueError`` on a broken plan,
-        and on a paged plan, which the port cannot run yet."""
+        """Check the schedule's dataflow, the fused regions, the KV
+        region's in-place aliases and a paged pool's geometry; raise
+        ``ValueError`` on a broken plan."""
         _require(tuple(n.name for n in self.nodes) == self.schedule, "schedule desync")
         _require(self.phase in ("forward", "prefill", "decode"), f"unknown phase {self.phase!r}")
-        _require(not self.paged, "paged KV plans are not ported yet (ROADMAP queue 1, item 3)")
         produced = set(self.inputs) | set(self.weight_names)
         kv_writes = {cout for _, cout in self.kv_state}
         for n in self.nodes:
@@ -186,6 +188,17 @@ class DeploymentPlan:
                 _require(a.offset == b.offset and a.size == b.size,
                          f"in-place cache update {cin} -> {cout} not aliased "
                          f"({a.offset}/{a.size} vs {b.offset}/{b.size})")
+        if self.paged:
+            from repro_torch.deploy.paging import pool_rows
+
+            _require(self.kv_block_size > 0, "paged plan without a block size")
+            rows = pool_rows(self.kv_blocks, self.kv_block_size)
+            for cin, cout in self.kv_state:
+                _require(cin is not None, f"paged pool {cout} must be a persistent plan input")
+                shape = self.tensors[cin].shape
+                _require(shape[0] * shape[2] == rows,
+                         f"pool {cin} shape {shape} does not hold "
+                         f"(kv_blocks + 1) * block_size = {rows} rows")
         return self
 
     def _validate_region(self, n: PlanNode, kv_writes: set) -> None:
@@ -289,7 +302,11 @@ class DecoderPlanPair:
 
     @property
     def kv_tensors(self) -> tuple[str, ...]:
-        """Names of the shared persistent cache tensors, layer order."""
+        """Names of the shared persistent cache tensors, layer order:
+        the prefill-produced strips (dense), or the pool inputs both
+        phases update in place (paged)."""
+        if self.paged:
+            return tuple(cin for cin, _ in self.prefill.kv_state)
         return tuple(out for _, out in self.prefill.kv_state)
 
     def counts(self) -> dict[str, dict[str, int]]:
@@ -307,7 +324,9 @@ class DecoderPlanPair:
         _require((self.prefill.kv_block_size, self.prefill.kv_blocks)
                  == (self.decode.kv_block_size, self.decode.kv_blocks)
                  == (self.kv_block_size, self.kv_blocks), "paging config desync")
-        dec_in = {cin for cin, _ in self.decode.kv_state}
+        dec_in = tuple(cin for cin, _ in self.decode.kv_state)
+        if self.paged:  # both phases consume and update the same pools in place
+            _require(self.kv_tensors == dec_in, f"pool desync: {self.kv_tensors} vs {dec_in}")
         for name in self.kv_tensors:
             _require(name in dec_in, f"prefill cache {name} not consumed by decode plan")
             a, b = self.prefill.tensors[name], self.decode.tensors[name]

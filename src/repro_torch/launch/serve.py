@@ -16,6 +16,14 @@ and the kernels' launches per prefill and per decode step:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --prompt-len 128 --gen 16
 
+``--kv-block-size`` (with ``--kv-blocks``, which defaults to enough
+blocks for every slot's ``prompt-len + gen`` rows) compiles the pair over
+a paged KV region, a shared pool of blocks with per-slot block tables;
+the summary then gives the pool's size and its free blocks at the end.
+``--head-by-head`` lowers an encoder with the paper's per-head schedule
+(one attention per head, the heads' int32 output partials summed on the
+cluster).
+
 This is the session-level loop.  The JAX package's decoder serving runs
 through its request-level ``Engine`` (scheduling, admission, sampling),
 which is not ported yet (ROADMAP queue 1, item 4).
@@ -42,6 +50,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.configs import get_config, reduced
 from repro_torch.deploy import api
+from repro_torch.deploy.paging import blocks_for_rows
 
 
 def device_name(device: torch.device) -> str:
@@ -201,6 +210,7 @@ def serve_decoder(model: api.CompiledModel, *, batch_size: int, steps: int, seed
         "backend": model.backend.value,
         "device": device_name(session.device),
         "batch": batch_size,
+        "paged": pair.paged,
         "prompt_len": pair.seq_len,
         "steps": steps,
         "prefill_ms": 1e3 * t_prefill,
@@ -211,8 +221,14 @@ def serve_decoder(model: api.CompiledModel, *, batch_size: int, steps: int, seed
     }
     pre = ", ".join(f"{n} {c}x" for n, c in per_prefill.items()) or "none"
     dec = ", ".join(f"{n} {c:g}x" for n, c in per_step.items()) or "none"
+    region = f"dense KV region of {pair.max_len} rows a slot"
+    if pair.paged:
+        stats["blocks_free"] = session.blocks_free
+        region = (f"paged KV pool of {pair.kv_blocks} blocks of {pair.kv_block_size} rows "
+                  f"({session.blocks_free} free after the run)")
     print(
-        f"decoder-serving [{model.backend.value}] {cfg.name} on {stats['device']}: plan nodes "
+        f"decoder-serving [{model.backend.value}] {cfg.name} on {stats['device']}, {region}: "
+        f"plan nodes "
         f"prefill {counts['prefill']['nodes']} ({counts['prefill']['ita']} ita), decode "
         f"{counts['decode']['nodes']} ({counts['decode']['ita']} ita); bind+warm-up "
         f"{t_setup:.2f}s; prefill {batch_size}x{pair.seq_len} in {stats['prefill_ms']:.3f} ms; "
@@ -238,6 +254,13 @@ def main(argv=None):
                     help="request batches to answer (encoder) or decode steps (decoder)")
     ap.add_argument("--prompt-len", type=int, default=None,
                     help="decoder prompt length (default: the config's max_seq)")
+    ap.add_argument("--kv-block-size", type=int, default=None,
+                    help="decoder: a paged KV region of blocks of this many rows")
+    ap.add_argument("--kv-blocks", type=int, default=None,
+                    help="decoder: the paged pool's blocks (default: every slot's "
+                         "prompt-len + gen rows)")
+    ap.add_argument("--head-by-head", action="store_true",
+                    help="encoder: lower with the paper's per-head MHA schedule")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--plan-cache", default=None, help="plan cache directory")
@@ -250,10 +273,14 @@ def main(argv=None):
     if args.reduced:
         cfg = reduced(cfg)
     decoder = api.is_dense_decoder(cfg)
-    kw = {}
+    kw = dict(head_by_head=args.head_by_head)
     if decoder:
         s = args.prompt_len or cfg.max_seq
-        kw = dict(seq_len=s, max_len=s + args.gen)
+        kw.update(seq_len=s, max_len=s + args.gen)
+        blocks = args.kv_blocks
+        if args.kv_block_size and blocks is None:
+            blocks = args.batch * blocks_for_rows(s + args.gen, args.kv_block_size)
+        kw.update(kv_block_size=args.kv_block_size, kv_blocks=blocks)
     t0 = time.perf_counter()
     model = api.compile(cfg, backend=args.backend, cache_dir=args.plan_cache,
                         use_cache=not args.no_plan_cache, **kw)

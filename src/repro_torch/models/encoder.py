@@ -6,7 +6,10 @@ the card or on the CPU: ``"w8a8"`` is the plain integer arithmetic with
 rowwise ITAMax (exact integer products, ``quant.qparams.imatmul``, and
 the ``itamax`` kernel on the card), ``"ita"`` sends the GEMMs through the
 ``int8_gemm`` kernel and attention through the ``ita_attention`` kernel
-(flash-ITAMax, 128-row KV blocks).
+(flash-ITAMax, 128-row KV blocks).  With ``cfg.ita_head_by_head`` the
+layer runs the paper's schedule instead, on either backend: rowwise
+attention one head at a time and each head's int32 partial of the output
+projection, summed and requantized once.
 
 Parameters are plain dicts; ``params["layers"]`` is a list with one dict
 per layer.
@@ -23,6 +26,7 @@ from repro_torch.core.quant_linear import ACT_GELU
 from repro_torch.kernels.int8_gemm import int8_gemm
 from repro_torch.kernels.ita_attention import ita_attention
 from repro_torch.models import layers as L
+from repro_torch.quant.qparams import i32, imatmul, make_qparams, requantize
 
 _S_GAMMA = 1.0 / 64.0
 
@@ -163,6 +167,31 @@ def _linear(pq: dict, x_q: torch.Tensor, site: L.QLinearSite, backend: str) -> t
     return L.qlinear(pq, x_q, site)
 
 
+def _head_by_head(cfg: ArchConfig, wo: dict, qh, kh, vh, p_mha: MhaQParams,
+                  q: L.QuantConfig) -> torch.Tensor:
+    """The paper's ITA schedule: single-head rowwise attention (on every
+    backend, as the reference) and a per-head partial output projection,
+    accumulated in int32 on the cluster; one requant, then the bias,
+    requantized on its own and added after it."""
+    hd = cfg.head_dim
+    group = cfg.n_heads // cfg.n_kv_heads
+    w = wo["w_q"]  # [H*hd, D]
+    acc = None
+    for head in range(cfg.n_heads):
+        kvh = head // group
+        a1 = attention_rowwise_i8(qh[:, head: head + 1], kh[:, kvh: kvh + 1],
+                                  vh[:, kvh: kvh + 1], p_mha)  # int8 [B, 1, S, hd]
+        part = imatmul(a1[:, 0], w[head * hd: (head + 1) * hd])
+        acc = part if acc is None else acc + part
+    qp_o = make_qparams(q.s_act, q.s_w, q.s_act)
+    out = requantize(acc, qp_o.mult, qp_o.shift)
+    if "b_q" in wo:
+        qb = make_qparams(q.s_act, 1.0, q.s_act)
+        out = requantize(i32(out) + i32(requantize(wo["b_q"], qp_o.mult, qp_o.shift)),
+                         qb.mult, qb.shift)
+    return out
+
+
 def qlayer_fwd_encoder(
     cfg: ArchConfig,
     lp: dict,
@@ -176,9 +205,9 @@ def qlayer_fwd_encoder(
     which the JAX package's model path leaves to XLA — goes through the
     ``int8_gemm`` kernel: ``qlinear_i8`` and the kernel are the same
     function, so the ints are unchanged and the layer runs on the card.
+    The head-by-head schedule's per-head partials are exact integer
+    products on either backend.
     """
-    if cfg.ita_head_by_head:
-        raise NotImplementedError("the head-by-head schedule is not ported yet")
     st = L.QLinearSite(q.s_act, q.s_w, q.s_act)
     p_mha = MhaQParams.make(q.s_act, q.s_act, q.s_act, q.s_act, cfg.head_dim)
     res = L.make_iadd_params(q.s_res, q.s_act, q.s_res)
@@ -186,8 +215,11 @@ def qlayer_fwd_encoder(
     h_q = L.norm_apply_i8(cfg.norm, lp["norm1"], x_q, _S_GAMMA, q.s_act)
     qkv = _linear(lp["attn"]["wqkv"], h_q, st, backend)
     qh, kh, vh = _split_heads(qkv, cfg)
-    a = _attention_i8(cfg, qh, kh, vh, p_mha, backend, q.s_act)
-    out = _linear(lp["attn"]["wo"], _merge_heads(a), st, backend)
+    if cfg.ita_head_by_head:
+        out = _head_by_head(cfg, lp["attn"]["wo"], qh, kh, vh, p_mha, q)
+    else:
+        a = _attention_i8(cfg, qh, kh, vh, p_mha, backend, q.s_act)
+        out = _linear(lp["attn"]["wo"], _merge_heads(a), st, backend)
     x_q = L.iadd_i8(x_q, out, *res)
 
     h_q = L.norm_apply_i8(cfg.norm, lp["norm2"], x_q, _S_GAMMA, q.s_act)

@@ -113,6 +113,11 @@ def _value_bits(t: torch.Tensor) -> int:
 #: ``torch._int_mm`` takes more than 16 rows; fewer are padded to this many
 INT_MM_MIN_ROWS = 17
 INT_MM_PAD_ROWS = 32
+#: the shallowest product sent to ``torch._int_mm``: cuBLASLt finds no int8
+#: kernel (CUBLAS_STATUS_NOT_SUPPORTED) for some shallower ones (a head's
+#: partial output projection, M 1928, K 64, N 384, on an H100), so those
+#: run in float64; ``chip_smoke.py`` checks the card's refusals against it
+INT_MM_MIN_DEPTH = 128
 
 
 def int_mm_padded(a2: torch.Tensor, b: torch.Tensor, mm=None) -> torch.Tensor:
@@ -146,9 +151,9 @@ def imatmul_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` of integer tensors as the int32 accumulator of the JAX
     package's ``preferred_element_type=int32`` products, on any device.
 
-    2-D-weight int8 products with K and N multiples of 8 go through
-    ``torch._int_mm`` (:func:`int_mm_padded`, which pads fewer than 17
-    rows).  Every other product runs in float64, exact while every partial
+    2-D-weight int8 products with K and N multiples of 8 and K at least
+    :data:`INT_MM_MIN_DEPTH` go through ``torch._int_mm``
+    (:func:`int_mm_padded`, which pads fewer than 17 rows).  Every other product runs in float64, exact while every partial
     sum stays within 2^53: ``K * max|a| * max|b| < 2^53``, checked from the
     dtypes (K below 2^39 for int8 x int8, 2^15 for int32 x int8) or, where
     the dtypes cannot show it, from the values (one reduction each; it
@@ -161,7 +166,7 @@ def imatmul_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"imatmul: {tuple(a.shape)} @ {tuple(b.shape)}")
     if a.dtype == torch.int8 and b.dtype == torch.int8 and b.dim() == 2:
         a2 = a.reshape(-1, k)
-        if a2.shape[0] > 0 and k % 8 == 0 and b.shape[1] % 8 == 0:
+        if a2.shape[0] > 0 and k % 8 == 0 and k >= INT_MM_MIN_DEPTH and b.shape[1] % 8 == 0:
             out = int_mm_padded(a2, b)
             return out.reshape(*a.shape[:-1], b.shape[1])
     k_bits = k.bit_length()  # K < 2^k_bits

@@ -374,3 +374,76 @@ def test_w8a8_session_forward_on_the_card(cuda_device):
     assert itamax.launches - counts[itamax] == cfg.n_layers
     assert all(f.launches == n for f, n in counts.items() if f is not itamax)
     assert torch.equal(got.cpu(), model.session(2, device="cpu").forward(tokens))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,kv_valid", [(128, None), (512, None), (256, 241)],
+                         ids=["mobilebert", "whisper", "dinov2"])
+def test_ita_attention_cuda_one_head(cuda_device, s, kv_valid):
+    """The head-by-head schedule's call: one head at a time, B*H = 8 (batch
+    8, H = 1), where the grid takes two warps a 16-row tile."""
+    g = torch.Generator().manual_seed(s)
+    q, k, v = (torch.randint(-128, 128, (8, 1, s, 64), generator=g, dtype=torch.int8)
+               for _ in range(3))
+    groups, split, _, gx, gy = attn_grid(8, s, 64, 128)
+    assert split == 2 and gx == 8 * -(-s // (16 * groups)) and gy == 1
+    kw = dict(ATTN_KW, block_k=128, kv_valid=kv_valid)
+    before = ita_attention.launches
+    got = ita_attention(q.to(cuda_device), k.to(cuda_device), v.to(cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert ita_attention.launches == before + 1
+    assert torch.equal(got.cpu(), ita_attention(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["ita", "w8a8"])
+def test_paged_session_on_the_card(cuda_device, backend):
+    """Reduced OLMo over a paged pool: two chunks, an attached prefix with a
+    partial last block (copied on the next write), a parked lane, and
+    decode steps on the card equal the CPU session (logits and pools)."""
+    cfg = reduced(get_config("olmo-1b"))
+    model = api.compile(cfg, backend=backend, seq_len=8, max_len=24, kv_block_size=4,
+                        kv_blocks=12, use_cache=False)
+    _, qp = model.bind(seed=0)
+    card, cpu = model.session(2, qp=qp), model.session(2, qp=qp, device="cpu")
+    assert card.paged and card.kv_pool["k"].is_cuda
+    prompt = torch.randint(0, cfg.vocab, (1, 16), generator=torch.Generator().manual_seed(6),
+                           dtype=torch.int32)
+    gemms = sum(n.kind == "gemm" and n.engine == "ita"
+                for n in model.artifact.prefill.flat_nodes()) if backend == "ita" else 0
+
+    def both(fn, kernel_launches):
+        before = int8_gemm.launches
+        got, want = fn(card), fn(cpu)
+        torch.cuda.synchronize()
+        assert int8_gemm.launches - before == kernel_launches
+        assert torch.equal(got.cpu(), want)
+        for part in ("k", "v"):  # but for the scratch block, whose rows are don't-care
+            assert torch.equal(card.kv_pool[part][:, 1:].cpu(), cpu.kv_pool[part][:, 1:])
+        assert card.block_chain(0) == cpu.block_chain(0)
+        assert card.block_chain(1) == cpu.block_chain(1) and card.cow_copies == cpu.cow_copies
+        return want
+
+    both(lambda s: s.prefill_chunk(0, prompt[:, :8], 0), gemms)
+    want = both(lambda s: s.prefill_chunk(0, prompt[:, 8:], 8), gemms)
+    for s in (card, cpu):
+        s.attach_prefix(1, s.block_chain(0)[:3], 10)
+    tok = torch.argmax(want[:, -1], dim=-1).to(torch.int32).repeat(2)
+    want = both(lambda s: s.decode(tok.to(s.device)), 0)
+    assert card.cow_copies == 1
+    tok = torch.argmax(want[:, -1], dim=-1).to(torch.int32)
+    both(lambda s: s.decode(tok.to(s.device), active=[True, False]), 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1928, 64, 384), (4096, 64, 384), (1024, 64, 128),
+                                   (1928, 384, 64), (1576, 192, 768)])
+def test_exact_product_cuda_head_shapes(cuda_device, m, k, n):
+    """The head-by-head schedule's products at batch 8: a head's partial
+    output projection (K = head_dim = 64, in float64) and its Q/K/V
+    projections (N = 64, through torch._int_mm)."""
+    gen = torch.Generator().manual_seed(m + k + n)
+    a, w = _ri8(gen, (m, k)), _ri8(gen, (k, n), lo=-127)
+    got = imatmul(a.to(cuda_device), w.to(cuda_device))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), torch.matmul(a.int(), w.int()))
