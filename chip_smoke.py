@@ -83,6 +83,22 @@ exit code and no result line):
    the card and on the CPU and must give the same ints.  The chunk and
    decode-step times print beside the dense pair's.
 
+8. engine — OLMo-1B at full width through the request-level engine
+   (``Engine``) over the paged phase's pool (blocks of 16 rows, 145 blocks,
+   chunks of 128, max_len 272, 8 slots, prefix cache on), one weight draw:
+   12 greedy requests of 16 tokens whose prompts (128-256 tokens) share a
+   200-token prefix (four of them) or repeat another exactly (two), one
+   cancelled while resident.  The ``ita`` engine, the ``w8a8`` engine and
+   an ``ita`` engine without the prefix cache must stream the same tokens;
+   int8_gemm must launch 112 times per prefill dispatch of the ``ita``
+   engines (counted per ``prefill_slot`` / ``prefill_chunks`` call) and no
+   kernel in a decode step; the prefix cache's hits and the sharing audit
+   must be those predicted.  The ``ita`` engine then serves the first 8
+   requests behind ``AsyncEngine`` + ``ServingFrontend`` to 8 concurrent
+   HTTP streams, which must carry the same tokens.  Each run prints
+   ``EngineStats.summary()`` (tok/s, TTFT, TPOT and step p50 / p99, prefix
+   hit rate, occupancy).
+
 It prints the kernels line (JSON), the nvidia-smi line, and last the
 contract line {"ok": true, "device": {...}}.  It exits non-zero, printing
 no result, when no CUDA device is available or when it is not run from a
@@ -1188,6 +1204,214 @@ def paged_phase(torch, card: str, dev) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# engine phase
+# ---------------------------------------------------------------------------
+
+#: OLMo-1B served by the request-level engine over the paged phase's pool
+#: (blocks of 16 rows, 145 blocks, chunks of seq_len 128, max_len 272, 8
+#: slots): 12 greedy requests of 16 tokens, request ``cancel`` cancelled
+#: after its ``cancel_after``-th token, the first ``http`` requests again
+#: as concurrent HTTP streams
+ENGINE = dict(seq_len=128, block=16, max_len=272, kv_blocks=145, batch=8, gen=16,
+              cancel=9, cancel_after=4, http=8)
+
+
+def engine_prompts(vocab: int) -> list[list[int]]:
+    """The 12 prompts, lengths staggered over 128-256 tokens: request 0 of
+    256 tokens; 1-4 share its first 200 tokens (210, 228, 246 and 256
+    tokens); 5 and 6 repeat 0 and 2 exactly; 7-11 are fresh (128, 150,
+    175, 199 and 230 tokens).  Drawn from seed ``SEED + 2``."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 2)
+
+    def fresh(n):
+        return [int(t) for t in rng.integers(0, vocab, n)]
+
+    base = fresh(256)
+    shared = [base[:200] + fresh(n - 200) for n in (210, 228, 246, 256)]
+    return [base, *shared, list(base), list(shared[1]),
+            *[fresh(n) for n in (128, 150, 175, 199, 230)]]
+
+
+#: what the block arithmetic and the admission rules give for these 12
+#: requests (the same on any device: the schedule is the host's):
+#: requests 1-4 attach 12 shared blocks of request 0, 5 and 6 are
+#: zero-prefill repeats, 7-11 miss
+ENGINE_PREFIX = dict(prefix_lookups=12, prefix_hits=6, full_prefix_hits=2)
+
+
+def engine_phase(torch, card: str, dev) -> dict[str, int]:
+    """OLMo-1B at full width through the request-level engine on the card:
+    ``ita`` with the prefix cache, ``w8a8`` with it and ``ita`` without it
+    must stream the same tokens; the ``ita`` engine then serves the first
+    requests over HTTP from its loop thread, and must stream them again."""
+    import threading
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.deploy import api
+    from repro_torch.deploy.engine import Engine
+    from repro_torch.deploy.serving import AsyncEngine, ServingFrontend
+    from repro_torch.launch.cli import http_generate, http_get_json
+    from repro_torch.launch.serve import DispatchCounter
+
+    cfg = get_config("olmo-1b")
+    e = ENGINE
+    wrappers = kernels.wrappers()
+    launches = dict.fromkeys(wrappers, 0)
+    on_card = None if dev.type == "cuda" else dev
+    gemm_per_prefill = 7 * cfg.n_layers
+    t_phase = time.perf_counter()
+
+    def compile_paged(backend, prefix_cache):
+        return api.compile(cfg, backend=backend, seq_len=e["seq_len"], max_len=e["max_len"],
+                           kv_block_size=e["block"], kv_blocks=e["kv_blocks"],
+                           prefix_cache=prefix_cache, use_cache=False)
+
+    t0 = time.perf_counter()
+    _, qp = compile_paged("ita", True).bind(seed=SEED)  # one draw for every engine
+    log(f"  weights drawn and quantized (seed {SEED}) in {time.perf_counter() - t0:.1f}s")
+    prompts = engine_prompts(cfg.vocab)
+
+    def zero():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def check_launches(what, backend, counter, stats):
+        """int8_gemm 112 times per prefill dispatch on ita, nothing else,
+        and no kernel in any decode step; each call the engine counted."""
+        got = {name: w.launches for name, w in wrappers.items()}
+        require(counter.calls["prefill"] == stats.prefill_dispatches
+                and counter.calls["decode"] == stats.decode_dispatches,
+                f"{what}: {counter.calls} dispatches, the engine counted "
+                f"{stats.prefill_dispatches} prefill and {stats.decode_dispatches} decode")
+        if dev.type == "cuda":  # the wrappers count launches on the card only
+            gemm = gemm_per_prefill * counter.calls["prefill"] if backend == "ita" else 0
+            want = {name: gemm if name == "int8_gemm" else 0 for name in wrappers}
+            require(got == want, f"{what}: launches {got}, expected {want}")
+            require(not counter.launches["decode"],
+                    f"{what}: kernels in decode steps {counter.launches['decode']}")
+        for name, n in got.items():
+            launches[name] += n
+        zero()
+
+    def check_streams(what, streams):
+        for i, (toks, reason) in enumerate(streams):
+            n = e["cancel_after"] if i == e["cancel"] else e["gen"]
+            want = "cancelled" if i == e["cancel"] else "length"
+            require(reason == want and len(toks) == n,
+                    f"{what}: request {i} ended {reason} after {len(toks)} tokens")
+            require(all(0 <= t < cfg.vocab for t in toks), f"{what}: request {i} off vocab")
+        require(streams[5] == streams[0] and streams[6] == streams[2],
+                f"{what}: an exact repeat streamed other tokens")
+
+    def serve(what, backend, prefix_cache):
+        engine = Engine(compile_paged(backend, prefix_cache), e["batch"], qp=qp,
+                        device=on_card)
+        require(engine.session.device == dev, f"{what}: engine on {engine.session.device}")
+        counter = DispatchCounter(engine.session)
+        # warm-up (cuBLAS handles, RoPE tables, scale caches), then afresh
+        engine.submit(prompts[7][: e["seq_len"]], 2)
+        engine.run_until_idle()
+        if engine.prefix_index is not None:
+            engine.prefix_index.drop_all()
+        engine.reset_stats()
+        counter.reset()
+        zero()
+        handles = []
+
+        def cancel_on(tok):
+            h = handles[e["cancel"]]
+            if len(h.tokens) == e["cancel_after"]:
+                h.cancel()  # resident: it is decoding
+
+        t = time.perf_counter()
+        for i, p in enumerate(prompts):
+            handles.append(engine.submit(p, e["gen"],
+                                         on_token=cancel_on if i == e["cancel"] else None))
+        stats = engine.run_until_idle(max_steps=2000)
+        sync()
+        secs = time.perf_counter() - t
+        check_launches(what, backend, counter, stats)
+        streams = [(h.tokens, h.finish_reason) for h in handles]
+        check_streams(what, streams)
+        if prefix_cache:
+            require(engine.audit_sharing() == [], f"{what}: the sharing audit found faults")
+            got = {k: getattr(stats, k) for k in ENGINE_PREFIX}
+            require(got == ENGINE_PREFIX, f"{what}: prefix cache {got}, expected {ENGINE_PREFIX}")
+        log(f"  [engine] olmo-1b ({what}): {len(prompts)} requests in {secs:.2f}s on {card}; "
+            f"{stats.prefill_dispatches} prefill dispatches (int8_gemm "
+            f"{gemm_per_prefill if backend == 'ita' else 0} launches each), "
+            f"{stats.decode_dispatches} decode steps (no kernel); {stats.summary()}")
+        return engine, streams
+
+    ita, want = serve("ita, prefix cache", "ita", True)
+    for what, backend, prefix_cache in (("w8a8, prefix cache", "w8a8", True),
+                                        ("ita, no prefix cache", "ita", False)):
+        engine, streams = serve(what, backend, prefix_cache)
+        require(streams == want, f"engine: {what} streams differ from ita with the prefix cache")
+        del engine
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    log(f"  [engine] streams: ita == w8a8 == ita without the prefix cache, all "
+        f"{len(prompts)} requests (request {e['cancel']} cancelled while resident after "
+        f"{e['cancel_after']} tokens); the sharing audit is clean")
+
+    # the same ita engine behind the HTTP frontend: the loop thread launches
+    ita.prefix_index.drop_all()
+    ita.reset_stats()
+    counter = DispatchCounter(ita.session)
+    zero()
+    n = e["http"]
+    got = [None] * n
+    errors = []
+    aengine = AsyncEngine(ita)
+    frontend = ServingFrontend(aengine, port=0)
+    host, port = frontend.start()
+
+    def client(i):
+        try:
+            events = list(http_generate(host, port, prompts[i], e["gen"], timeout=900))
+            toks = [ev["token"] for ev in events if "token" in ev]
+            require(events[-1]["done"] and events[-1]["tokens"] == toks,
+                    f"http request {i}: the summary line differs from the stream")
+            got[i] = (toks, events[-1]["finish_reason"])
+        except Exception as exc:  # noqa: BLE001 - reported by the caller's thread
+            errors.append((i, exc))
+
+    t = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    secs = time.perf_counter() - t
+    stats_http = http_get_json(host, port, "/v1/stats")
+    frontend.shutdown(drain=True, timeout=300)
+    require(not any(th.is_alive() for th in threads), "http clients did not finish")
+    require(not errors, f"http clients failed: {errors}")
+    require(got == want[:n], "engine: the HTTP streams differ from the sync engine's")
+    stats = ita.stats_snapshot()
+    check_launches("ita over HTTP", "ita", counter, stats)
+    require(stats_http["requests_completed"] == n and not stats_http["sanitize"]["enabled"],
+            f"/v1/stats: {stats_http}")
+    log(f"  [engine] AsyncEngine + ServingFrontend on {card}: {n} concurrent HTTP streams "
+        f"equal the sync engine's in {secs:.2f}s; {stats.prefill_dispatches} prefill "
+        f"dispatches, {stats.decode_dispatches} decode steps from the loop thread; "
+        f"{stats.summary()}")
+    log(f"  [engine] phase took {time.perf_counter() - t_phase:.1f}s")
+    del ita, aengine
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1246,6 +1470,10 @@ def main() -> int:
     phase("[paged] OLMo-1B over a paged, prefix-shared KV region: chunks, attach, decode with "
         "a parked slot, free and re-prefill, on ita and w8a8 vs the dense pair and the CPU")
     for name, n in paged_phase(torch, card, dev).items():
+        launches[name] += n
+    phase("[engine] OLMo-1B through the request-level engine over the paged pool: 12 "
+          "requests on ita, w8a8 and ita without the prefix cache, then 8 HTTP streams")
+    for name, n in engine_phase(torch, card, dev).items():
         launches[name] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -3,7 +3,9 @@
 Module for module it mirrors the JAX package beside it: the integer
 primitives (``quant``, ``core``), the model-level encoder (``models``),
 the deployment flow ``compile(cfg) -> DeploymentPlan -> InferenceSession``
-(``deploy``) and the serving entry point (``launch.serve``).  The
+(``deploy``), the request-level serving engine and its HTTP frontend
+(``deploy.engine``, ``deploy.serving``) and the serving entry point
+(``launch.serve``).  The
 accelerator slot of the dispatch table holds CUDA kernels written for
 Hopper (``csrc/``, built on first use by ``kernels._build``).
 

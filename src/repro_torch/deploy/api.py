@@ -23,9 +23,10 @@ first write.  Sessions of either backend run on the CUDA device unless
 the caller passes ``device="cpu"``; with no card and no explicit CPU
 request they raise.
 
-Not ported yet: the request-level ``Engine`` (ROADMAP queue 1, item 4),
-the static plan verifier (``verify=``), the sanitizer and autotuning
-(item 5).
+The request-level ``Engine`` above a decoder session lives in
+:mod:`repro_torch.deploy.engine`.  Not ported yet: the static plan
+verifier (``verify=``), the sanitizer (ROADMAP queue 1, item 3) and
+autotuning.
 """
 
 from __future__ import annotations

@@ -20,8 +20,8 @@ the match:
 * :meth:`PrefixIndex.match` — longest-prefix lookup: walks full token
   groups, returns the resident block chain covering the matched rows and
   whether the match is *full* (exact prompt, cached logits available).
-  The caller (the JAX package's ``Engine``; the port's serving engine is
-  still to come) forks the matched blocks into the new request's table
+  The caller (:class:`~repro_torch.deploy.engine.Engine`) forks the
+  matched blocks into the new request's table
   (:meth:`~repro_torch.deploy.api.InferenceSession.attach_prefix`) and
   prefills only the novel suffix.
 * :meth:`PrefixIndex.insert` — called when a request finishes prefilling:

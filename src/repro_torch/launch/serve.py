@@ -1,4 +1,4 @@
-"""Serving driver of the port: batched requests through the compiled plan.
+"""Serving entry point of the port: the request-level engine over the compiled plan.
 
 ``compile()`` lowers the config (plan cache hit or miss is printed).  For
 an encoder, ``InferenceSession.forward`` answers ``--gen`` batches of
@@ -7,37 +7,35 @@ with the device's name:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mobilebert --batch 8 --gen 4
 
-For a dense decoder (``--arch olmo-1b``), the pair is compiled for
-``--prompt-len`` tokens and a KV region of ``prompt-len + gen`` rows; one
-``session.prefill`` of ``--batch`` prompts is followed by ``--gen``
-greedy ``session.decode`` steps (argmax of the logits).  It prints the
-prefill time, the time per decode step, the generated tokens per second
-and the kernels' launches per prefill and per decode step:
+A dense decoder (``--arch olmo-1b``) is served by the continuous-batching
+``repro_torch.deploy.engine.Engine``, as in the JAX package: ``--requests``
+prompts (lengths staggered over ``--prompt-len`` .. ``--prompt-len +
+--extra-prompt``) are *submitted*, and the engine owns admission, the
+per-request depths, eviction and slot recycling over ``--batch`` slots.
+The pair is compiled for ``--prompt-len`` tokens and a KV region of
+``prompt-len + extra-prompt + gen + 1`` rows a slot.  It prints the
+engine's summary (tok/s, TTFT / TPOT / step percentiles, occupancy), the
+ms of a prefill dispatch and of a decode step, and the kernels' launches
+per prefill dispatch and per decode step:
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --prompt-len 128 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --prompt-len 128 --gen 16 --batch 8
 
 ``--kv-block-size`` (with ``--kv-blocks``, which defaults to enough
-blocks for every slot's ``prompt-len + gen`` rows) compiles the pair over
-a paged KV region, a shared pool of blocks with per-slot block tables;
-the summary then gives the pool's size and its free blocks at the end.
-``--head-by-head`` lowers an encoder with the paper's per-head schedule
-(one attention per head, the heads' int32 output partials summed on the
-cluster).
-
-This is the session-level loop.  The JAX package's decoder serving runs
-through its request-level ``Engine`` (scheduling, admission, sampling),
-which is not ported yet (ROADMAP queue 1, item 4).
+blocks for every slot's whole region) compiles the pair over a paged KV
+region, a shared pool of blocks with per-slot block tables: prompts then
+prefill in chunks, and the summary gives the pool's size and its free
+blocks at the end.  ``--scheduler`` / ``--max-queue`` / ``--aging-s``
+pick the admission policy, ``--sampling temperature`` the sampler.
+``--head-by-head`` lowers an encoder with the paper's per-head schedule.
 
 ``--backend w8a8`` runs the paper-faithful integer arithmetic instead of
 the kernel backend (on the card its rowwise softmax is the ``itamax``
-kernel).  The summary line names the kernels the forwards launched, with
-their launches per forward.  ``--device cpu`` runs the plain PyTorch
-versions on the CPU instead.
-``--profile`` adds one traced batch after the timed loop (for a decoder:
-one traced prefill and one traced decode step) and prints the device
-time by kernel (``torch.profiler``: the top kernels, then the port's own
-kernels wherever they rank) and the device's busy share of the untraced
-loop's mean time for the same call; the timed loop itself runs untraced.
+kernel).  ``--device cpu`` runs the plain PyTorch versions on the CPU.
+``--profile`` traces, after the timed run, one batch (encoder) or one
+engine step that holds a prefill and one step of pure decode (decoder),
+and prints the device time by kernel (``torch.profiler``: the top
+kernels, then the port's own kernels wherever they rank) and the
+device's busy share of the same work untraced.
 """
 
 from __future__ import annotations
@@ -51,7 +49,15 @@ from repro_torch import kernels
 from repro_torch.configs import get_config, reduced
 from repro_torch.deploy import api
 from repro_torch.deploy.paging import blocks_for_rows
-
+from repro_torch.launch.cli import (
+    add_engine_args,
+    add_plan_args,
+    add_serving_args,
+    make_sampling,
+    make_scheduler_from_args,
+    resolve_requests,
+    synthesize_prompts,
+)
 
 def device_name(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
@@ -163,135 +169,211 @@ def _profile(fn, device: torch.device, untraced_ms: float, what: str) -> dict:
     return prof
 
 
-def serve_decoder(model: api.CompiledModel, *, batch_size: int, steps: int, seed: int = 0,
+class DispatchCounter:
+    """Counts a decoder session's dispatches and the kernel launches each
+    makes: ``prefill_slot`` and ``prefill_chunks`` calls are ``"prefill"``,
+    ``decode`` calls ``"decode"``.  It wraps those three methods on the
+    session object (the engine calls them there); a call that raises is
+    not counted."""
+
+    KINDS = {"prefill_slot": "prefill", "prefill_chunks": "prefill", "decode": "decode"}
+
+    def __init__(self, session: api.InferenceSession):
+        self._wrappers = kernels.wrappers()
+        self.reset()
+        for method, kind in self.KINDS.items():
+            setattr(session, method, self._counted(getattr(session, method), kind))
+
+    def reset(self) -> None:
+        self.calls = {"prefill": 0, "decode": 0}
+        self.launches = {"prefill": {}, "decode": {}}
+
+    def _counted(self, fn, kind: str):
+        def counted(*args, **kwargs):
+            before = {name: w.launches for name, w in self._wrappers.items()}
+            out = fn(*args, **kwargs)
+            self.calls[kind] += 1
+            for name, w in self._wrappers.items():
+                if w.launches > before[name]:
+                    got = self.launches[kind]
+                    got[name] = got.get(name, 0) + w.launches - before[name]
+            return out
+        return counted
+
+    def per_call(self, kind: str) -> dict:
+        """Each kernel's launches per dispatch of ``kind``."""
+        n = max(1, self.calls[kind])
+        return {name: c / n for name, c in self.launches[kind].items()}
+
+
+def compile_for_serving(cfg, args, *, extra_prompt: int = 0) -> api.CompiledModel:
+    """One ``compile()`` call for both families (the shared CLI surface):
+    a decoder's KV region holds ``prompt-len + extra_prompt + gen + 1``
+    rows a slot, over a paged pool with ``--kv-block-size``."""
+    kw = dict(head_by_head=getattr(args, "head_by_head", False))
+    if api.is_dense_decoder(cfg):
+        max_len = args.prompt_len + extra_prompt + args.gen + 1
+        kw.update(seq_len=args.prompt_len, max_len=max_len)
+        blocks = args.kv_blocks
+        if args.kv_block_size and blocks is None:
+            blocks = args.batch * blocks_for_rows(max_len, args.kv_block_size)
+        kw.update(kv_block_size=args.kv_block_size, kv_blocks=blocks)
+    t0 = time.perf_counter()
+    model = api.compile(cfg, backend=args.backend, cache_dir=args.plan_cache,
+                        use_cache=not args.no_plan_cache, **kw)
+    print(
+        f"compile [{model.backend.value}] {cfg.name}: {model.kind} artifact, plan cache "
+        f"{'hit' if model.cache_hit else 'miss'} ({model.fingerprint[:12]}, "
+        f"v{model.compiler_version}) in {time.perf_counter() - t0:.2f}s"
+    )
+    return model
+
+
+def _launches(per: dict) -> str:
+    return ", ".join(f"{n} {c:g}x" for n, c in per.items()) or "none"
+
+
+def serve_decoder(model: api.CompiledModel, *, max_batch: int, requests: int, prompt_len: int,
+                  extra_prompt: int, gen: int, sampling=None, scheduler=None, seed: int = 0,
                   device: str | None = None, profile: bool = False) -> dict:
-    """One prefill of ``batch_size`` prompts, then ``steps`` greedy decode
-    steps; returns the stats.
+    """Request-level serving: submit -> schedule -> stream, engine only;
+    returns the stats.
 
-    A first prefill and decode step run untimed as a warm-up (they also
-    build the kernels on first use); the timed prefill starts the region
-    afresh.
+    One request of ``prompt_len`` tokens runs first as a warm-up (it also
+    builds the kernels on first use); the stats and counters start
+    afresh after it.
     """
+    from repro_torch.deploy.engine import Engine
+
     cfg, pair = model.cfg, model.artifact
-    if pair.seq_len + steps > pair.max_len:
-        raise ValueError(f"{steps} decode steps after a {pair.seq_len}-token prompt pass "
-                         f"the KV region of {pair.max_len} rows")
     t0 = time.perf_counter()
-    session = model.session(batch_size, seed=seed, device=device)
-    gen = torch.Generator().manual_seed(seed)
-    prompts = torch.randint(0, cfg.vocab, (batch_size, pair.seq_len), generator=gen,
-                            dtype=torch.int32).to(session.device)
-
-    def greedy(logits):
-        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-
-    session.decode(greedy(session.prefill(prompts)))
-    _sync(session.device)
+    engine = Engine(model, max_batch, sampling=sampling, scheduler=scheduler, seed=seed,
+                    device=device)
+    session = engine.session
+    counter = DispatchCounter(session)
+    warm = synthesize_prompts(cfg.vocab, n=1, prompt_len=prompt_len, seed=seed + 1)[0]
+    engine.submit(warm, 2)
+    engine.run_until_idle()
+    if engine.prefix_index is not None:
+        engine.prefix_index.drop_all()
     t_setup = time.perf_counter() - t0
-    wrappers = kernels.wrappers()
-    for w in wrappers.values():
-        w.launches = 0
+    engine.reset_stats()
+    counter.reset()
+    prompts = synthesize_prompts(cfg.vocab, n=requests, prompt_len=prompt_len,
+                                 extra=extra_prompt, seed=seed)
     t0 = time.perf_counter()
-    logits = session.prefill(prompts)
+    handles = [engine.submit(p, gen) for p in prompts]
+    stats = engine.run_until_idle()
     _sync(session.device)
-    t_prefill = time.perf_counter() - t0
-    per_prefill = {name: w.launches for name, w in wrappers.items() if w.launches}
-    for w in wrappers.values():
-        w.launches = 0
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        logits = session.decode(greedy(logits))
-    _sync(session.device)
-    t_decode = time.perf_counter() - t0
-    per_step = {name: w.launches / steps for name, w in wrappers.items() if w.launches}
-    counts = pair.counts()
-    stats = {
+    t_run = time.perf_counter() - t0
+    per_prefill, per_step = counter.per_call("prefill"), counter.per_call("decode")
+    out = {
         "arch": cfg.name,
         "backend": model.backend.value,
         "device": device_name(session.device),
-        "batch": batch_size,
+        "batch": max_batch,
         "paged": pair.paged,
-        "prompt_len": pair.seq_len,
-        "steps": steps,
-        "prefill_ms": 1e3 * t_prefill,
-        "decode_ms_per_step": 1e3 * t_decode / steps,
-        "tok_per_s": batch_size * steps / t_decode,
+        "requests": requests,
+        "seconds": t_run,
+        "prefill_dispatches": stats.prefill_dispatches,
+        "decode_steps": stats.decode_dispatches,
+        "prefill_ms": 1e3 * stats.prefill_time_s / max(1, stats.prefill_dispatches),
+        "decode_ms_per_step": 1e3 * stats.decode_time_s / max(1, stats.decode_dispatches),
+        "tok_per_s": stats.tokens_per_s(),
+        "ttft_ms": (1e3 * stats.ttft(50), 1e3 * stats.ttft(99)),
+        "tpot_ms": (1e3 * stats.tpot(50), 1e3 * stats.tpot(99)),
         "kernel_launches_per_prefill": per_prefill,
         "kernel_launches_per_decode_step": per_step,
+        "tokens": [h.tokens for h in handles],
     }
-    pre = ", ".join(f"{n} {c}x" for n, c in per_prefill.items()) or "none"
-    dec = ", ".join(f"{n} {c:g}x" for n, c in per_step.items()) or "none"
     region = f"dense KV region of {pair.max_len} rows a slot"
     if pair.paged:
-        stats["blocks_free"] = session.blocks_free
+        out["blocks_free"] = session.blocks_free
         region = (f"paged KV pool of {pair.kv_blocks} blocks of {pair.kv_block_size} rows "
                   f"({session.blocks_free} free after the run)")
+    counts = pair.counts()
     print(
-        f"decoder-serving [{model.backend.value}] {cfg.name} on {stats['device']}, {region}: "
-        f"plan nodes "
-        f"prefill {counts['prefill']['nodes']} ({counts['prefill']['ita']} ita), decode "
+        f"engine-serving [{model.backend.value}] {cfg.name} on {out['device']}, {region}: plan "
+        f"nodes prefill {counts['prefill']['nodes']} ({counts['prefill']['ita']} ita), decode "
         f"{counts['decode']['nodes']} ({counts['decode']['ita']} ita); bind+warm-up "
-        f"{t_setup:.2f}s; prefill {batch_size}x{pair.seq_len} in {stats['prefill_ms']:.3f} ms; "
-        f"{steps} decode steps of {batch_size} at {stats['decode_ms_per_step']:.3f} ms a step "
-        f"({stats['tok_per_s']:.1f} tok/s); kernels per prefill: {pre}; per decode step: {dec}"
+        f"{t_setup:.2f}s; {requests} requests of {prompt_len}-{prompt_len + extra_prompt} "
+        f"prompt tokens in {t_run:.3f}s"
     )
+    print(f"  {stats.summary()}")
+    print(
+        f"  {stats.prefill_dispatches} prefill dispatches at {out['prefill_ms']:.3f} ms; "
+        f"{stats.decode_dispatches} decode steps of {max_batch} slots at "
+        f"{out['decode_ms_per_step']:.3f} ms a step; kernels per prefill dispatch: "
+        f"{_launches(per_prefill)}; per decode step: {_launches(per_step)}"
+    )
+    for h in handles[:2]:
+        print(f"  request {h.rid}: prompt {len(h.prompt)} tokens -> {h.tokens[:8]} "
+              f"({h.finish_reason})")
     if profile:
-        stats["profile_prefill"] = _profile(lambda: session.prefill(prompts), session.device,
-                                            stats["prefill_ms"], "prefill")
-        tok = greedy(session.prefill(prompts))
-        stats["profile_decode"] = _profile(lambda: session.decode(tok), session.device,
-                                           stats["decode_ms_per_step"], "decode step")
-    return stats
+        out.update(_profile_steps(engine, prompt_len, seed))
+    return out
+
+
+def _profile_steps(engine, prompt_len: int, seed: int) -> dict:
+    """Untraced, then traced: ``max_batch`` fresh prompts of ``prompt_len``
+    tokens, the engine step that admits and prefills them (it also decodes
+    them once), and the next step, pure decode."""
+    dev = engine.session.device
+    untraced = {}
+
+    def admit():
+        for p in synthesize_prompts(engine.cfg.vocab, n=engine.max_batch,
+                                    prompt_len=prompt_len, seed=seed + 2):
+            engine.submit(p, 3)
+
+    def timed_step():
+        _sync(dev)
+        t = time.perf_counter()
+        engine.step()
+        _sync(dev)
+        return 1e3 * (time.perf_counter() - t)
+
+    admit()
+    untraced["prefill"], untraced["decode"] = timed_step(), timed_step()
+    engine.run_until_idle()
+    admit()
+    out = {"profile_prefill_step": _profile(engine.step, dev, untraced["prefill"],
+                                            "engine step with a prefill"),
+           "profile_decode_step": _profile(engine.step, dev, untraced["decode"],
+                                           "engine step of pure decode")}
+    engine.run_until_idle()
+    return out
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="mobilebert")
     ap.add_argument("--reduced", action="store_true", help="tiny same-family variant")
-    ap.add_argument("--backend", default="ita", choices=("ita", "w8a8"))
-    ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--gen", type=int, default=4,
-                    help="request batches to answer (encoder) or decode steps (decoder)")
-    ap.add_argument("--prompt-len", type=int, default=None,
-                    help="decoder prompt length (default: the config's max_seq)")
-    ap.add_argument("--kv-block-size", type=int, default=None,
-                    help="decoder: a paged KV region of blocks of this many rows")
-    ap.add_argument("--kv-blocks", type=int, default=None,
-                    help="decoder: the paged pool's blocks (default: every slot's "
-                         "prompt-len + gen rows)")
+    ap.add_argument("--extra-prompt", type=int, default=2,
+                    help="decoder: stagger prompt lengths up to this many tokens past "
+                         "--prompt-len")
+    add_plan_args(ap)
+    add_engine_args(ap)
+    add_serving_args(ap)
     ap.add_argument("--head-by-head", action="store_true",
                     help="encoder: lower with the paper's per-head MHA schedule")
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
-    ap.add_argument("--plan-cache", default=None, help="plan cache directory")
-    ap.add_argument("--no-plan-cache", action="store_true")
     ap.add_argument("--profile", action="store_true",
-                    help="trace one extra batch and print device time by kernel")
+                    help="trace one batch (encoder) or two engine steps (decoder) and print "
+                         "device time by kernel")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    decoder = api.is_dense_decoder(cfg)
-    kw = dict(head_by_head=args.head_by_head)
-    if decoder:
-        s = args.prompt_len or cfg.max_seq
-        kw.update(seq_len=s, max_len=s + args.gen)
-        blocks = args.kv_blocks
-        if args.kv_block_size and blocks is None:
-            blocks = args.batch * blocks_for_rows(s + args.gen, args.kv_block_size)
-        kw.update(kv_block_size=args.kv_block_size, kv_blocks=blocks)
-    t0 = time.perf_counter()
-    model = api.compile(cfg, backend=args.backend, cache_dir=args.plan_cache,
-                        use_cache=not args.no_plan_cache, **kw)
-    print(
-        f"compile [{model.backend.value}] {cfg.name}: plan cache "
-        f"{'hit' if model.cache_hit else 'miss'} ({model.fingerprint[:12]}, "
-        f"v{model.compiler_version}) in {time.perf_counter() - t0:.2f}s"
-    )
-    serve = serve_decoder if decoder else serve_encoder
-    serve(model, batch_size=args.batch, steps=args.gen, seed=args.seed,
-          device=args.device, profile=args.profile)
+    model = compile_for_serving(cfg, args, extra_prompt=args.extra_prompt)
+    if model.kind == "encoder":
+        return serve_encoder(model, batch_size=args.batch, steps=args.gen, seed=args.seed,
+                             device=args.device, profile=args.profile)
+    return serve_decoder(
+        model, max_batch=args.batch, requests=resolve_requests(args),
+        prompt_len=args.prompt_len, extra_prompt=args.extra_prompt, gen=args.gen,
+        sampling=make_sampling(args), scheduler=make_scheduler_from_args(args),
+        seed=args.seed, device=args.device, profile=args.profile)
 
 
 if __name__ == "__main__":

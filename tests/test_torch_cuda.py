@@ -447,3 +447,39 @@ def test_exact_product_cuda_head_shapes(cuda_device, m, k, n):
     got = imatmul(a.to(cuda_device), w.to(cuda_device))
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and torch.equal(got.cpu(), torch.matmul(a.int(), w.int()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("backend", ["ita", "w8a8"])
+def test_engine_streams_on_the_card_equal_cpu(cuda_device, backend, paged):
+    """The request-level engine on the card and on the CPU at reduced
+    size: the same streams, finish reasons and dispatch counts, with
+    staggered prompt lengths (teacher-forced tails when dense, chunks when
+    paged), slot recycling and, paged, an exact repeat served from the
+    prefix cache; one logits fetch per dispatch either way."""
+    from repro_torch.deploy.engine import Engine
+    from repro_torch.launch.cli import synthesize_prompts
+
+    cfg = reduced(get_config("olmo-1b"))
+    kw = dict(kv_block_size=4, kv_blocks=24, prefix_cache=True) if paged else {}
+    model = api.compile(cfg, backend=backend, seq_len=8, max_len=24, use_cache=False, **kw)
+    _, qp = model.bind(seed=3)
+    prompts = synthesize_prompts(cfg.vocab, n=5, prompt_len=8, extra=6, seed=4)
+    prompts.append(list(prompts[1]))  # an exact repeat
+
+    def run(device):
+        engine = Engine(model, 2, qp=qp, device=device)
+        assert engine.session.device.type == torch.device(device).type
+        handles = [engine.submit(p, 4) for p in prompts]
+        engine.run_until_idle(max_steps=500)
+        if paged:
+            assert engine.audit_sharing() == []
+        s = engine.stats
+        return ([(h.tokens, h.finish_reason) for h in handles],
+                (s.prefill_dispatches, s.decode_dispatches, s.full_prefix_hits))
+
+    card, cpu = run(cuda_device), run("cpu")
+    assert card == cpu
+    assert all(reason == "length" for _, reason in cpu[0])
+    assert cpu[0][5] == cpu[0][1] and (cpu[1][2] >= 1) == paged

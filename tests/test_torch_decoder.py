@@ -342,11 +342,16 @@ def test_decoder_session_defaults_to_the_card(monkeypatch):
 
 
 def test_serve_decoder_cli_on_cpu(capsys):
+    """The engine serves 2 requests of 16 tokens on 2 slots: a prefill
+    dispatch each, then one decode step of both for their second token."""
     serve.main(["--arch", "olmo-1b", "--reduced", "--device", "cpu", "--no-plan-cache",
-                "--prompt-len", "16", "--gen", "2", "--batch", "2", "--backend", "w8a8"])
+                "--prompt-len", "16", "--gen", "2", "--batch", "2", "--backend", "w8a8",
+                "--requests", "2", "--extra-prompt", "0"])
     out = capsys.readouterr().out
-    assert "decoder-serving [w8a8] olmo-1b on cpu" in out and "tok/s" in out
-    assert "prefill 2x16" in out and "2 decode steps of 2" in out
+    assert "engine-serving [w8a8] olmo-1b on cpu" in out and "gen tok/s" in out
+    assert "dense KV region of 19 rows a slot" in out  # 16 + 2 + 1
+    assert "2/2 requests done" in out and "4 tokens in 1 decode dispatches" in out
+    assert "2 prefill dispatches" in out and "1 decode steps of 2 slots" in out
 
 
 # ---------------------------------------------------------------------------

@@ -463,17 +463,22 @@ def test_cache_write_paged_runner_equals_reference(active, s):
     (["--kv-block-size", "4"], 2 * 5), (["--kv-block-size", "8", "--kv-blocks", "7"], 7),
 ], ids=["kv-block-size", "kv-blocks"])
 def test_serve_paged_decoder_cli_on_cpu(capsys, flags, blocks):
+    """The engine serves 2 requests of 16 tokens on 2 slots over the pool:
+    one batched chunk for both, two decode steps, every block back in the
+    pool at the end."""
     from repro_torch.launch import serve
 
     serve.main(["--arch", "olmo-1b", "--reduced", "--device", "cpu", "--no-plan-cache",
                 "--prompt-len", "16", "--gen", "3", "--batch", "2", "--backend", "w8a8",
-                *flags])
+                "--requests", "2", "--extra-prompt", "0", *flags])
     out = capsys.readouterr().out
     size = int(flags[1])
-    assert f"paged KV pool of {blocks} blocks of {size} rows" in out and "tok/s" in out
-    # 2 slots hold 16 + 3 rows each; the rest of the pool is free
-    free = blocks - 2 * blocks_for_rows(16 + 3, size)
-    assert f"({free} free after the run)" in out and "3 decode steps of 2" in out
+    assert f"paged KV pool of {blocks} blocks of {size} rows" in out and "gen tok/s" in out
+    # a slot's region is 16 + 3 + 1 rows; the default pool holds both slots'
+    assert blocks >= 2 * blocks_for_rows(16 + 3 + 1, size)
+    # both requests finished: the pool is whole again
+    assert f"({blocks} free after the run)" in out and "2/2 requests done" in out
+    assert "1 prefill dispatches" in out and "2 decode steps of 2 slots" in out
 
 
 def test_serve_kv_blocks_needs_a_block_size():
