@@ -97,7 +97,27 @@ exit code and no result line):
    requests behind ``AsyncEngine`` + ``ServingFrontend`` to 8 concurrent
    HTTP streams, which must carry the same tokens.  Each run prints
    ``EngineStats.summary()`` (tok/s, TTFT, TPOT and step p50 / p99, prefix
-   hit rate, occupancy).
+   hit rate, occupancy, the plan's verification time).
+9. audit  — the static plan verifier and the autotuner (every phase above
+   compiles with ``verify=True``, the default): the verifier's time and
+   findings by rule for the three encoders on both backends, fused and
+   head-by-head, and OLMo-1B dense (fused, unfused) and paged, on both
+   backends; no error, each file's findings equal to the verifier's over
+   the saved file, 32 ``QNT002`` warnings on each OLMo-1B pair (the JAX
+   package's count) and none on an encoder, and ``python -m
+   repro_torch.deploy.verify`` exiting 0 over them (1 with ``--strict``).
+   The fused dense OLMo-1B pair, saved with one activation moved onto a
+   live tensor's offset, must make ``CompiledModel.load`` raise
+   ``PlanVerificationError`` (MEM001) with the card's allocated memory
+   unchanged, and load with ``verify=False``.  Then ``compile(...,
+   autotune=True)`` with the engine phase's options must pick the JAX
+   package's knobs (37 blocks of 64, fusion boundary 2), and an ``Engine``
+   over the tuned pair, with the engine phase's weights and 12 requests,
+   must stream the untuned ``ita`` engine's tokens, with int8_gemm 112
+   times per prefill dispatch, no kernel in a decode step and
+   ``EngineStats.verify_ms`` > 0; tok/s, TPOT, step p50 / p99, prefill
+   dispatches and ms per decode step print for both engines (the tuned
+   knobs minimise the ITA ASIC model's step, not the card's).
 
 It prints the kernels line (JSON), the nvidia-smi line, and last the
 contract line {"ok": true, "device": {...}}.  It exits non-zero, printing
@@ -1242,27 +1262,116 @@ def engine_prompts(vocab: int) -> list[list[int]]:
 ENGINE_PREFIX = dict(prefix_lookups=12, prefix_hits=6, full_prefix_hits=2)
 
 
-def engine_phase(torch, card: str, dev) -> dict[str, int]:
+def check_engine_launches(dev, what: str, model, counter, stats, launches: dict) -> None:
+    """int8_gemm 7 times a layer (112 at OLMo-1B's 16) per prefill dispatch
+    on ita, nothing else, and no kernel in any decode step; each call the
+    engine counted.  Adds the run's launches to ``launches`` and sets the
+    counts to 0."""
+    from repro_torch import kernels
+
+    wrappers = kernels.wrappers()
+    got = {name: w.launches for name, w in wrappers.items()}
+    require(counter.calls["prefill"] == stats.prefill_dispatches
+            and counter.calls["decode"] == stats.decode_dispatches,
+            f"{what}: {counter.calls} dispatches, the engine counted "
+            f"{stats.prefill_dispatches} prefill and {stats.decode_dispatches} decode")
+    if dev.type == "cuda":  # the wrappers count launches on the card only
+        gemm = olmo_gemms(model) * counter.calls["prefill"]
+        want = {name: gemm if name == "int8_gemm" else 0 for name in wrappers}
+        require(got == want, f"{what}: launches {got}, expected {want}")
+        require(not counter.launches["decode"],
+                f"{what}: kernels in decode steps {counter.launches['decode']}")
+    for name, n in got.items():
+        launches[name] += n
+        wrappers[name].launches = 0
+
+
+def olmo_gemms(model) -> int:
+    """int8_gemm launches per prefill dispatch: 7 GEMMs a layer on ita."""
+    return 7 * model.cfg.n_layers if model.backend.value == "ita" else 0
+
+
+def serve_engine(torch, card: str, dev, model, qp, prompts: list, what: str, launches: dict,
+                 *, tag: str = "[engine]", prefix_counts: bool = True):
+    """The 12 requests through an ``Engine`` over ``model`` on ``dev``
+    (after a warm-up request), request ``ENGINE["cancel"]`` cancelled
+    while resident; checks the launches, the streams and, where
+    ``prefix_counts``, the prefix cache's counts.  Returns the engine,
+    the streams, the stats and the seconds of the run."""
+    from repro_torch import kernels
+    from repro_torch.deploy.engine import Engine
+    from repro_torch.launch.serve import DispatchCounter
+
+    e = ENGINE
+    vocab = model.cfg.vocab
+    engine = Engine(model, e["batch"], qp=qp, device=None if dev.type == "cuda" else dev)
+    require(engine.session.device == dev, f"{what}: engine on {engine.session.device}")
+    counter = DispatchCounter(engine.session)
+    # warm-up (cuBLAS handles, RoPE tables, scale caches), then afresh
+    engine.submit(prompts[7][: e["seq_len"]], 2)
+    engine.run_until_idle()
+    if engine.prefix_index is not None:
+        engine.prefix_index.drop_all()
+    engine.reset_stats()
+    counter.reset()
+    for w in kernels.wrappers().values():
+        w.launches = 0
+    handles = []
+
+    def cancel_on(tok):
+        h = handles[e["cancel"]]
+        if len(h.tokens) == e["cancel_after"]:
+            h.cancel()  # resident: it is decoding
+
+    t = time.perf_counter()
+    for i, p in enumerate(prompts):
+        handles.append(engine.submit(p, e["gen"],
+                                     on_token=cancel_on if i == e["cancel"] else None))
+    stats = engine.run_until_idle(max_steps=2000)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    check_engine_launches(dev, what, model, counter, stats, launches)
+    streams = [(h.tokens, h.finish_reason) for h in handles]
+    for i, (toks, reason) in enumerate(streams):
+        n = e["cancel_after"] if i == e["cancel"] else e["gen"]
+        want = "cancelled" if i == e["cancel"] else "length"
+        require(reason == want and len(toks) == n,
+                f"{what}: request {i} ended {reason} after {len(toks)} tokens")
+        require(all(0 <= t < vocab for t in toks), f"{what}: request {i} off vocab")
+    require(streams[5] == streams[0] and streams[6] == streams[2],
+            f"{what}: an exact repeat streamed other tokens")
+    if engine.prefix_index is not None:
+        require(engine.audit_sharing() == [], f"{what}: the sharing audit found faults")
+        if prefix_counts:
+            got = {k: getattr(stats, k) for k in ENGINE_PREFIX}
+            require(got == ENGINE_PREFIX, f"{what}: prefix cache {got}, expected {ENGINE_PREFIX}")
+    log(f"  {tag} olmo-1b ({what}): {len(prompts)} requests in {secs:.2f}s on {card}; "
+        f"{stats.prefill_dispatches} prefill dispatches (int8_gemm {olmo_gemms(model)} "
+        f"launches each), {stats.decode_dispatches} decode steps (no kernel); "
+        f"{stats.summary()}")
+    return engine, streams, stats, secs
+
+
+def engine_phase(torch, card: str, dev) -> tuple[dict[str, int], dict]:
     """OLMo-1B at full width through the request-level engine on the card:
     ``ita`` with the prefix cache, ``w8a8`` with it and ``ita`` without it
     must stream the same tokens; the ``ita`` engine then serves the first
-    requests over HTTP from its loop thread, and must stream them again."""
+    requests over HTTP from its loop thread, and must stream them again.
+    Returns the launches and, for the audit phase, the weights, the
+    prompts, the ``ita`` engine's streams and its stats and seconds."""
     import threading
 
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.deploy import api
-    from repro_torch.deploy.engine import Engine
     from repro_torch.deploy.serving import AsyncEngine, ServingFrontend
     from repro_torch.launch.cli import http_generate, http_get_json
     from repro_torch.launch.serve import DispatchCounter
 
     cfg = get_config("olmo-1b")
     e = ENGINE
-    wrappers = kernels.wrappers()
-    launches = dict.fromkeys(wrappers, 0)
-    on_card = None if dev.type == "cuda" else dev
-    gemm_per_prefill = 7 * cfg.n_layers
+    launches = dict.fromkeys(kernels.wrappers(), 0)
     t_phase = time.perf_counter()
 
     def compile_paged(backend, prefix_cache):
@@ -1275,86 +1384,13 @@ def engine_phase(torch, card: str, dev) -> dict[str, int]:
     log(f"  weights drawn and quantized (seed {SEED}) in {time.perf_counter() - t0:.1f}s")
     prompts = engine_prompts(cfg.vocab)
 
-    def zero():
-        for w in wrappers.values():
-            w.launches = 0
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-
-    def check_launches(what, backend, counter, stats):
-        """int8_gemm 112 times per prefill dispatch on ita, nothing else,
-        and no kernel in any decode step; each call the engine counted."""
-        got = {name: w.launches for name, w in wrappers.items()}
-        require(counter.calls["prefill"] == stats.prefill_dispatches
-                and counter.calls["decode"] == stats.decode_dispatches,
-                f"{what}: {counter.calls} dispatches, the engine counted "
-                f"{stats.prefill_dispatches} prefill and {stats.decode_dispatches} decode")
-        if dev.type == "cuda":  # the wrappers count launches on the card only
-            gemm = gemm_per_prefill * counter.calls["prefill"] if backend == "ita" else 0
-            want = {name: gemm if name == "int8_gemm" else 0 for name in wrappers}
-            require(got == want, f"{what}: launches {got}, expected {want}")
-            require(not counter.launches["decode"],
-                    f"{what}: kernels in decode steps {counter.launches['decode']}")
-        for name, n in got.items():
-            launches[name] += n
-        zero()
-
-    def check_streams(what, streams):
-        for i, (toks, reason) in enumerate(streams):
-            n = e["cancel_after"] if i == e["cancel"] else e["gen"]
-            want = "cancelled" if i == e["cancel"] else "length"
-            require(reason == want and len(toks) == n,
-                    f"{what}: request {i} ended {reason} after {len(toks)} tokens")
-            require(all(0 <= t < cfg.vocab for t in toks), f"{what}: request {i} off vocab")
-        require(streams[5] == streams[0] and streams[6] == streams[2],
-                f"{what}: an exact repeat streamed other tokens")
-
-    def serve(what, backend, prefix_cache):
-        engine = Engine(compile_paged(backend, prefix_cache), e["batch"], qp=qp,
-                        device=on_card)
-        require(engine.session.device == dev, f"{what}: engine on {engine.session.device}")
-        counter = DispatchCounter(engine.session)
-        # warm-up (cuBLAS handles, RoPE tables, scale caches), then afresh
-        engine.submit(prompts[7][: e["seq_len"]], 2)
-        engine.run_until_idle()
-        if engine.prefix_index is not None:
-            engine.prefix_index.drop_all()
-        engine.reset_stats()
-        counter.reset()
-        zero()
-        handles = []
-
-        def cancel_on(tok):
-            h = handles[e["cancel"]]
-            if len(h.tokens) == e["cancel_after"]:
-                h.cancel()  # resident: it is decoding
-
-        t = time.perf_counter()
-        for i, p in enumerate(prompts):
-            handles.append(engine.submit(p, e["gen"],
-                                         on_token=cancel_on if i == e["cancel"] else None))
-        stats = engine.run_until_idle(max_steps=2000)
-        sync()
-        secs = time.perf_counter() - t
-        check_launches(what, backend, counter, stats)
-        streams = [(h.tokens, h.finish_reason) for h in handles]
-        check_streams(what, streams)
-        if prefix_cache:
-            require(engine.audit_sharing() == [], f"{what}: the sharing audit found faults")
-            got = {k: getattr(stats, k) for k in ENGINE_PREFIX}
-            require(got == ENGINE_PREFIX, f"{what}: prefix cache {got}, expected {ENGINE_PREFIX}")
-        log(f"  [engine] olmo-1b ({what}): {len(prompts)} requests in {secs:.2f}s on {card}; "
-            f"{stats.prefill_dispatches} prefill dispatches (int8_gemm "
-            f"{gemm_per_prefill if backend == 'ita' else 0} launches each), "
-            f"{stats.decode_dispatches} decode steps (no kernel); {stats.summary()}")
-        return engine, streams
-
-    ita, want = serve("ita, prefix cache", "ita", True)
+    ita, want, ita_stats, ita_secs = serve_engine(
+        torch, card, dev, compile_paged("ita", True), qp, prompts, "ita, prefix cache",
+        launches)
     for what, backend, prefix_cache in (("w8a8, prefix cache", "w8a8", True),
                                         ("ita, no prefix cache", "ita", False)):
-        engine, streams = serve(what, backend, prefix_cache)
+        engine, streams, _, _ = serve_engine(
+            torch, card, dev, compile_paged(backend, prefix_cache), qp, prompts, what, launches)
         require(streams == want, f"engine: {what} streams differ from ita with the prefix cache")
         del engine
         if dev.type == "cuda":
@@ -1367,7 +1403,6 @@ def engine_phase(torch, card: str, dev) -> dict[str, int]:
     ita.prefix_index.drop_all()
     ita.reset_stats()
     counter = DispatchCounter(ita.session)
-    zero()
     n = e["http"]
     got = [None] * n
     errors = []
@@ -1398,7 +1433,7 @@ def engine_phase(torch, card: str, dev) -> dict[str, int]:
     require(not errors, f"http clients failed: {errors}")
     require(got == want[:n], "engine: the HTTP streams differ from the sync engine's")
     stats = ita.stats_snapshot()
-    check_launches("ita over HTTP", "ita", counter, stats)
+    check_engine_launches(dev, "ita over HTTP", ita.session.model, counter, stats, launches)
     require(stats_http["requests_completed"] == n and not stats_http["sanitize"]["enabled"],
             f"/v1/stats: {stats_http}")
     log(f"  [engine] AsyncEngine + ServingFrontend on {card}: {n} concurrent HTTP streams "
@@ -1407,6 +1442,162 @@ def engine_phase(torch, card: str, dev) -> dict[str, int]:
         f"{stats.summary()}")
     log(f"  [engine] phase took {time.perf_counter() - t_phase:.1f}s")
     del ita, aengine
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches, dict(qp=qp, prompts=prompts, streams=want, stats=ita_stats,
+                          secs=ita_secs)
+
+
+#: what the JAX package's tuner picks for the [engine] phase's options
+#: (ita, seq_len 128, max_len 272, 145 blocks of 16): 37 blocks of 64 keep
+#: the pool's rows, not its slots (8 unshared slots at 272 rows need 40)
+AUDIT_KNOBS = {"kv_block_size": 64, "kv_blocks": 37, "fuse_min_nodes": 2, "gemm_tiles": {}}
+#: the JAX package's static verifier on each OLMo-1B full-width pair: 32
+#: QNT002 warnings (the 8192-deep MLP-down GEMMs' requant bound), no error
+AUDIT_OLMO_WARNINGS = {"QNT002": 32}
+AUDIT_ENCODERS = ("mobilebert", "whisper-tiny-encoder", "dinov2-small")
+
+
+def _co_live_overlap(plan: dict) -> str:
+    """Move one activation input of the first node that reads two onto the
+    other's offset: two live tensors then share arena bytes (the MEM001
+    mutation of the reference's tests/test_verify.py).  Returns its name."""
+    kv = {n for kv_pair in plan["kv_state"] for n in kv_pair if n}
+    tensors = plan["tensors"]
+    for n in plan["nodes"]:
+        cands = [t for t in n["inputs"]
+                 if t in tensors and not tensors[t]["weight"] and tensors[t]["offset"] is not None
+                 and tensors[t]["size"] > 0 and t not in kv]
+        if len(cands) >= 2 and tensors[cands[0]]["offset"] != tensors[cands[1]]["offset"]:
+            tensors[cands[0]]["offset"] = tensors[cands[1]]["offset"]
+            return cands[0]
+    raise AssertionError("no co-live activation pair found")
+
+
+def audit_phase(torch, card: str, dev, eng: dict) -> dict[str, int]:
+    """The static plan verifier and the autotuner on the main path: the
+    verifier's cost and findings on every artifact of the earlier phases,
+    a plan corrupted on disk refused by ``CompiledModel.load`` before any
+    bind, and the autotuned OLMo-1B pair served through an ``Engine`` on
+    the card beside the [engine] phase's untuned one."""
+    import collections
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.deploy import api
+    from repro_torch.deploy import verify as V
+
+    launches = dict.fromkeys(kernels.wrappers(), 0)
+    olmo = get_config("olmo-1b")
+    e = ENGINE
+    t_phase = time.perf_counter()
+
+    # 1. the verifier's cost and findings on every artifact of the run
+    cases = [(f"{arch} {backend} {'head-by-head' if hbh else 'fused'}", get_config(arch),
+              dict(backend=backend, head_by_head=hbh))
+             for arch in AUDIT_ENCODERS for backend in ("ita", "w8a8") for hbh in (False, True)]
+    for backend in ("ita", "w8a8"):
+        cases += [
+            (f"olmo-1b {backend} dense fused", olmo,
+             dict(backend=backend, seq_len=DECODER["seq_len"], max_len=DECODER["max_len"])),
+            (f"olmo-1b {backend} dense unfused", olmo,
+             dict(backend=backend, seq_len=DECODER["seq_len"], max_len=DECODER["max_len"],
+                  fuse=False)),
+            (f"olmo-1b {backend} paged", olmo,
+             dict(backend=backend, seq_len=e["seq_len"], max_len=e["max_len"],
+                  kv_block_size=e["block"], kv_blocks=e["kv_blocks"], prefix_cache=True)),
+        ]
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i, (what, cfg, kw) in enumerate(cases):
+            model = api.compile(cfg, use_cache=False, **kw)
+            path = os.path.join(tmp, f"{i}.json")
+            model.save(path)
+            paths.append(path)
+            # the same verifier over the saved file, unvalidated, on the host
+            again = V.verify(V.load_artifact(path))
+            by_rule = dict(collections.Counter(d.rule for d in model.diagnostics))
+            require(not [d for d in model.diagnostics if d.severity == "error"],
+                    f"audit: {what}: errors {model.diagnostics}")
+            require(list(model.diagnostics) == again,
+                    f"audit: {what}: compile's findings differ from the verifier's on the file")
+            want = AUDIT_OLMO_WARNINGS if cfg is olmo else {}
+            require(by_rule == want, f"audit: {what}: findings {by_rule}, expected {want}")
+            log(f"  [audit] {what}: verify_ms {model.verify_ms:.3f}, findings "
+                f"{by_rule or 'none'} ({len(model.artifact.to_json())} bytes of plan)")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc, rc_strict = V.main(paths), V.main(paths + ["--strict"])
+        strict_rc = 1 if AUDIT_OLMO_WARNINGS else 0  # warnings fail only under --strict
+        require((rc, rc_strict) == (0, strict_rc),
+                f"audit: the CLI exits {rc} / {rc_strict} --strict, expected 0 / {strict_rc}")
+        log(f"  [audit] python -m repro_torch.deploy.verify over the {len(paths)} files: rc "
+            f"{rc}, rc {rc_strict} with --strict (the OLMo-1B warnings)")
+
+        # 2. a plan corrupted on disk: refused before anything is bound
+        model = api.compile(olmo, backend="ita", seq_len=DECODER["seq_len"],
+                            max_len=DECODER["max_len"], use_cache=False)
+        payload = model.to_dict()
+        moved = _co_live_overlap(payload["artifact"]["decode"])
+        path = os.path.join(tmp, "corrupt.json")
+        with open(path, "w") as f:
+            json.dump(payload, f)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        raised = None
+        try:
+            api.CompiledModel.load(path, olmo)
+        except V.PlanVerificationError as exc:
+            raised = exc
+        after = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        require(raised is not None, "audit: a plan with overlapping tensors loaded")
+        rules = sorted({d.rule for d in raised.diagnostics if d.severity == "error"})
+        require("MEM001" in rules, f"audit: the corrupt plan raised {rules}, not MEM001")
+        require(after == before, f"audit: device memory {before} -> {after} across the load")
+        unchecked = api.CompiledModel.load(path, olmo, verify=False)
+        require(unchecked.kind == "decoder" and unchecked.verify_ms == 0.0,
+                "audit: verify=False did not load the corrupt file")
+        log(f"  [audit] olmo-1b dense fused with {moved!r} moved onto a live tensor: "
+            f"CompiledModel.load raised PlanVerificationError ({', '.join(rules)}); device "
+            f"memory {before} -> {after} bytes; verify=False loads it")
+        del model, unchecked
+
+    # 3. the autotuned pair on the card, beside the [engine] phase's untuned one
+    t0 = time.perf_counter()
+    tuned = api.compile(olmo, backend="ita", seq_len=e["seq_len"], max_len=e["max_len"],
+                        kv_block_size=e["block"], kv_blocks=e["kv_blocks"], prefix_cache=True,
+                        autotune=True, use_cache=False)
+    knobs = tuned.options["autotune"]
+    log(f"  [audit] compile(autotune=True) in {time.perf_counter() - t0:.2f}s: knobs "
+        f"{json.dumps(knobs)}; {json.dumps(tuned.artifact.autotune)} (predicted_cost_s is "
+        f"the ITA ASIC model's decode step, not the card's); verify_ms {tuned.verify_ms:.3f}")
+    require(knobs == AUDIT_KNOBS and tuned.artifact.autotune["knobs"] == knobs,
+            f"audit: knobs {knobs}, the JAX package's are {AUDIT_KNOBS}")
+    engine, streams, stats, secs = serve_engine(
+        torch, card, dev, tuned, eng["qp"], eng["prompts"], "ita, autotuned", launches,
+        tag="[audit]", prefix_counts=False)
+    require(streams == eng["streams"], "audit: the tuned engine streams other tokens")
+    require(stats.verify_ms > 0.0 and stats.verify_ms == tuned.verify_ms,
+            f"audit: EngineStats.verify_ms {stats.verify_ms}")
+    log(f"  [audit] the tuned engine's {len(streams)} streams equal the untuned engine's; "
+        f"EngineStats.verify_ms {stats.verify_ms:.3f}")
+    for label, st, sec, bs, nb in (
+            ("untuned", eng["stats"], eng["secs"], e["block"], e["kv_blocks"]),
+            ("autotuned", stats, secs, knobs["kv_block_size"], knobs["kv_blocks"])):
+        log(f"  [audit] ita engine {label} ({nb} blocks of {bs}) on {card}: "
+            f"{st.tokens_per_s():.1f} gen tok/s, TPOT p50/p99 {st.tpot(50) * 1e3:.1f}/"
+            f"{st.tpot(99) * 1e3:.1f} ms, step p50/p99 {st.step_latency_p50() * 1e3:.1f}/"
+            f"{st.step_latency_p99() * 1e3:.1f} ms, {st.prefill_dispatches} prefill "
+            f"dispatches, {st.decode_dispatches} decode steps at "
+            f"{st.decode_time_s / max(st.decode_dispatches, 1) * 1e3:.1f} ms each, "
+            f"{st.preemptions} preemptions, {sec:.2f}s")
+    log(f"  [audit] phase took {time.perf_counter() - t_phase:.1f}s")
+    del engine, tuned
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return launches
@@ -1473,7 +1664,12 @@ def main() -> int:
         launches[name] += n
     phase("[engine] OLMo-1B through the request-level engine over the paged pool: 12 "
           "requests on ita, w8a8 and ita without the prefix cache, then 8 HTTP streams")
-    for name, n in engine_phase(torch, card, dev).items():
+    engine_launches, engine_run = engine_phase(torch, card, dev)
+    for name, n in engine_launches.items():
+        launches[name] += n
+    phase("[audit] the static plan verifier on every artifact of the run, a corrupt plan "
+          "refused at load, and the autotuned OLMo-1B pair through the engine")
+    for name, n in audit_phase(torch, card, dev, engine_run).items():
         launches[name] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -23,10 +23,13 @@ first write.  Sessions of either backend run on the CUDA device unless
 the caller passes ``device="cpu"``; with no card and no explicit CPU
 request they raise.
 
-The request-level ``Engine`` above a decoder session lives in
-:mod:`repro_torch.deploy.engine`.  Not ported yet: the static plan
-verifier (``verify=``), the sanitizer (ROADMAP queue 1, item 3) and
-autotuning.
+Every artifact ``compile`` hands out, fresh or from the cache, and every
+file ``CompiledModel.load`` reads is audited by the static plan verifier
+(:mod:`repro_torch.deploy.verify`) unless the caller passes
+``verify=False``.  ``compile(autotune=True)`` picks a decoder's
+bit-neutral plan knobs with the ITA cost model
+(:mod:`repro_torch.deploy.autotune`).  The request-level ``Engine`` above
+a decoder session lives in :mod:`repro_torch.deploy.engine`.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import json
 import os
 import tempfile
 import threading
+import time
 
 import numpy as np
 import torch
@@ -215,6 +219,11 @@ class CompiledModel:
     options: dict
     cache_hit: bool = False
     cache_path: str | None = None
+    # the static verifier's results, not serialized (a reloaded artifact
+    # is verified again): the warnings of the pass (errors raise at
+    # compile or load time) and its one-time wall-clock cost
+    diagnostics: tuple = ()
+    verify_ms: float = 0.0
 
     @property
     def kind(self) -> str:
@@ -284,9 +293,14 @@ class CompiledModel:
             f.write(self.to_json())
 
     @staticmethod
-    def load(path: str, cfg: ArchConfig) -> "CompiledModel":
+    def load(path: str, cfg: ArchConfig, *, verify: bool = True) -> "CompiledModel":
         """Rehydrate a saved model; ``cfg`` must be the config it was
-        compiled from and the payload must carry ``COMPILER_VERSION``."""
+        compiled from and the payload must carry ``COMPILER_VERSION``.
+
+        With ``verify=True`` the artifact goes through the static
+        verifier before anything is bound: a file edited or corrupted on
+        disk raises :class:`~repro_torch.deploy.verify.PlanVerificationError`
+        here instead of running."""
         with open(path) as f:
             payload = json.load(f)
         if payload.get("format") != _PAYLOAD_FORMAT:
@@ -302,7 +316,7 @@ class CompiledModel:
                 f"{path}: fingerprint mismatch — saved for config {payload['arch']!r} "
                 "with different contents/options"
             )
-        return CompiledModel(
+        model = CompiledModel(
             cfg=cfg,
             backend=as_backend(payload["backend"]),
             artifact=_artifact_from_payload(payload),
@@ -311,11 +325,24 @@ class CompiledModel:
             options=dict(payload["options"]),
             cache_path=path,
         )
+        if verify:
+            model.diagnostics, model.verify_ms = _verify_artifact(model.artifact, context=path)
+        return model
 
 
 # ---------------------------------------------------------------------------
 # compile()
 # ---------------------------------------------------------------------------
+
+
+def _verify_artifact(artifact, *, context: str) -> tuple[tuple, float]:
+    """Run the static plan verifier; return (warnings, elapsed ms).
+    Errors raise :class:`~repro_torch.deploy.verify.PlanVerificationError`."""
+    from repro_torch.deploy.verify import check
+
+    t0 = time.perf_counter()
+    diags = check(artifact, context=context)
+    return tuple(diags), (time.perf_counter() - t0) * 1e3
 
 
 def compile(  # noqa: A001 — torch.compile precedent
@@ -333,6 +360,7 @@ def compile(  # noqa: A001 — torch.compile precedent
     prefix_cache: bool = False,
     cache_dir: str | None = None,
     use_cache: bool = True,
+    verify: bool = True,
 ) -> CompiledModel:
     """Compile one config into its deployment artifact, cached on disk.
 
@@ -352,13 +380,23 @@ def compile(  # noqa: A001 — torch.compile precedent
     key is ``config_fingerprint(cfg, options)`` with the JAX package's
     option set, so both packages fingerprint a config identically.
 
-    Not ported yet, and refused with ``NotImplementedError``:
-    ``autotune`` (ROADMAP queue 1, item 5).  Raises
+    ``autotune=True`` (decoders only; an encoder raises ``ValueError``)
+    picks the bit-neutral knobs (``kv_block_size`` with the pool's rows
+    kept, the fusion boundary, the GEMM macro-tiles) by the ITA cost
+    model's argmin (:mod:`repro_torch.deploy.autotune`), records them and
+    the predicted step cost in the decode plan's ``autotune`` payload and
+    folds them into the fingerprint: the tuner is deterministic, so a
+    second ``compile(autotune=True)`` is a cache hit.
+
+    ``verify=True`` (the default) runs the static plan verifier
+    (:mod:`repro_torch.deploy.verify`) over the artifact, fresh or loaded
+    from the cache.  Errors raise
+    :class:`~repro_torch.deploy.verify.PlanVerificationError`; warnings go
+    to ``CompiledModel.diagnostics`` and the cost to
+    ``CompiledModel.verify_ms``.  ``verify`` is a checking knob, not a
+    lowering option: it never enters the fingerprint.  Raises
     :class:`UnsupportedFamilyError` for families the port cannot lower.
     """
-    if autotune:
-        raise NotImplementedError(
-            "autotune needs the cost model, which is not ported yet (ROADMAP queue 1, item 5)")
     be = as_backend(backend)
     granule = backend_granule(be)
     s = seq_len or cfg.max_seq
@@ -376,17 +414,34 @@ def compile(  # noqa: A001 — torch.compile precedent
             f"{kv_block_size}/{kv_blocks}"
         )
     fuse = bool(fuse) and is_decoder
+    if autotune and not is_decoder:
+        raise ValueError(
+            "autotune enumerates decode-step knobs (kv_block_size, fusion "
+            f"boundary, decode GEMM tiles); {cfg.name} does not lower to a "
+            "decoder plan pair"
+        )
     if prefix_cache and not (is_decoder and nb):
         raise ValueError(
             "prefix_cache needs a paged decoder artifact: prefix sharing "
             "forks per-slot block-table entries, so compile with "
             "kv_block_size/kv_blocks on a decoder config"
         )
+    cap = (max_len or s + 1) if is_decoder else 0
+    tuned = None
+    fuse_min_nodes = 2
+    if autotune:
+        from repro_torch.deploy.autotune import tune_decoder
+
+        tuned = tune_decoder(cfg, seq_len=s, max_len=cap, granule=granule,
+                             kv_block_size=bs, kv_blocks=nb, fuse=fuse)
+        bs = tuned.knobs["kv_block_size"]
+        nb = tuned.knobs["kv_blocks"]
+        fuse_min_nodes = tuned.knobs["fuse_min_nodes"]
     options = {
         "backend": be.value,
         "granule": granule,
         "seq_len": s,
-        "max_len": (max_len or s + 1) if is_decoder else 0,
+        "max_len": cap,
         "kv_block_size": bs,
         "kv_blocks": nb,
         "head_by_head": head_by_head,
@@ -394,18 +449,28 @@ def compile(  # noqa: A001 — torch.compile precedent
         "fuse": fuse,
         "prefix_cache": bool(prefix_cache),
     }
+    if autotune:  # the resolved knobs key the cache
+        options["autotune"] = dict(tuned.knobs)
     fingerprint = config_fingerprint(cfg, options)
     path = _cache_path(cache_dir or default_cache_dir(), cfg, fingerprint)
     if use_cache:
         artifact = _cache_load(path, fingerprint)
         if artifact is not None:
-            return CompiledModel(cfg, be, artifact, fingerprint, COMPILER_VERSION, options,
-                                 cache_hit=True, cache_path=path)
+            model = CompiledModel(cfg, be, artifact, fingerprint, COMPILER_VERSION, options,
+                                  cache_hit=True, cache_path=path)
+            if verify:  # bytes read from disk are audited, not trusted
+                model.diagnostics, model.verify_ms = _verify_artifact(artifact, context=path)
+            return model
     artifact = lower(cfg, seq_len, head_by_head=head_by_head, include_head=include_head,
                      max_len=max_len, kv_block_size=bs, kv_blocks=nb, granule=granule,
-                     fuse=fuse)
+                     fuse=fuse, fuse_min_nodes=fuse_min_nodes)
+    if tuned is not None:
+        artifact.decode.autotune = tuned.payload()
     model = CompiledModel(cfg, be, artifact, fingerprint, COMPILER_VERSION, options,
                           cache_path=path if use_cache else None)
+    if verify:
+        model.diagnostics, model.verify_ms = _verify_artifact(
+            artifact, context=f"compile({cfg.name})")
     if use_cache:
         _cache_store(path, model.to_dict())
     return model

@@ -303,9 +303,10 @@ class EngineStats:
     # top-level plan dispatches per decode step (len(decode.nodes)) — the
     # metric region fusion collapses (~5x on the reference decoders)
     dispatches_per_step: int = 0
-    # findings recorded by point-in-time audit_sharing() calls (the JAX
-    # package's verify_ms, the static verifier's cost, has no field here:
-    # that verifier is not ported)
+    # one-time static-verification cost of the artifact this engine runs
+    # (CompiledModel.verify_ms; 0.0 when compiled with verify=False)
+    verify_ms: float = 0.0
+    # findings recorded by point-in-time audit_sharing() calls
     audit_findings: int = 0
     step_times_s: list = dataclasses.field(default_factory=list)
     # request-level latency samples (engine clock): TTFT is submit ->
@@ -412,7 +413,8 @@ class EngineStats:
             f"{self.prompt_tokens_per_s():.1f} prompt tok/s, "
             f"{self.dispatches_per_step} dispatches/step, "
             f"step p50/p99 {self.step_latency_p50() * 1e3:.1f}/"
-            f"{self.step_latency_p99() * 1e3:.1f} ms)"
+            f"{self.step_latency_p99() * 1e3:.1f} ms, "
+            f"plan verified in {self.verify_ms:.1f} ms)"
         )
 
 
@@ -542,7 +544,8 @@ class Engine:
         self.scheduler.guard_lock = self._lock
         self.stats = EngineStats(
             max_batch=self.max_batch,
-            dispatches_per_step=self.session.decode_dispatch_count)
+            dispatches_per_step=self.session.decode_dispatch_count,
+            verify_ms=getattr(self.session.model, "verify_ms", 0.0))
         self._slots: list[RequestHandle | None] = [None] * self.max_batch
         # engine-owned per-slot depth; free slots are pinned at 0 so their
         # placeholder lane in a batched dispatch never trips KV capacity
@@ -707,7 +710,8 @@ class Engine:
         self._cow_base = self.session.cow_copies if self.paged else 0
         self.stats = EngineStats(
             max_batch=self.max_batch,
-            dispatches_per_step=self.session.decode_dispatch_count)
+            dispatches_per_step=self.session.decode_dispatch_count,
+            verify_ms=getattr(self.session.model, "verify_ms", 0.0))
         self._note_queue()
         return self.stats
 

@@ -3,11 +3,13 @@
 Deeploy consumes ONNX; we synthesize the equivalent operator graphs from
 ``ArchConfig`` (same op vocabulary: MatMul/Add/LayerNorm/Softmax/GELU/...).
 The graph is the substrate for the paper's deployment flow (port of the
-JAX package's ``deploy/graph.py``; the paper-graph builder used for the
-cost model is not ported yet):
+JAX package's ``deploy/graph.py``):
 
-  pattern fusion (MHA) -> engine mapping -> tiling -> lifetime analysis
-  -> static memory layout -> schedule
+  pattern fusion (MHA) -> head split -> engine mapping -> tiling ->
+  lifetime analysis -> static memory layout -> schedule -> cost model
+
+:func:`build_encoder_graph` is the paper's operator graph of an encoder,
+the one the cost model (:mod:`repro_torch.deploy.costmodel`) prices.
 """
 
 from __future__ import annotations
@@ -108,3 +110,74 @@ class Graph:
             assert t in produced
         return self
 
+
+def build_encoder_graph(cfg, seq_len: int | None = None) -> Graph:
+    """Operator graph of one paper-style encoder model (all layers).
+
+    This is the ONNX-equivalent stream Deeploy would see: un-fused MatMul
+    chains for attention (Q/K/V/QK^T/Softmax/AV/O), LayerNorm, GELU MLP,
+    residual Adds.
+    """
+    s = seq_len or cfg.max_seq
+    e, h, p, f = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
+    eb = cfg.d_bottleneck  # MobileBERT-style outer width (0 = none)
+    g = Graph()
+    x = g.add_tensor("input", (s, eb or e))
+    g.inputs.append(x)
+    for l in range(cfg.n_layers):
+        pre = f"l{l}_"
+        if eb:
+            # bottleneck in: outer width -> intra width
+            w_bi = g.add_tensor(pre + "w_bn_in", (eb, e), weight=True)
+            xb = g.add_tensor(pre + "bn_in", (s, e))
+            g.add_node("MatMul", [x, w_bi], [xb], dims=(s, eb, e))
+            outer_x, x = x, xb
+        h1 = g.add_tensor(pre + "ln1", (s, e))
+        g.add_node("LayerNorm", [x], [h1], dims=(s, e))
+        wq = g.add_tensor(pre + "wq", (e, h * p), weight=True)
+        wk = g.add_tensor(pre + "wk", (e, h * p), weight=True)
+        wv = g.add_tensor(pre + "wv", (e, h * p), weight=True)
+        q = g.add_tensor(pre + "q", (s, h * p))
+        k = g.add_tensor(pre + "k", (s, h * p))
+        v = g.add_tensor(pre + "v", (s, h * p))
+        g.add_node("MatMul", [h1, wq], [q], dims=(s, e, h * p))
+        g.add_node("MatMul", [h1, wk], [k], dims=(s, e, h * p))
+        g.add_node("MatMul", [h1, wv], [v], dims=(s, e, h * p))
+        logits = g.add_tensor(pre + "qk", (h, s, s))
+        g.add_node("MatMul", [q, k], [logits], dims=(s, p, s), heads=h, transpose_b=True)
+        a = g.add_tensor(pre + "a", (h, s, s))
+        g.add_node("Softmax", [logits], [a], dims=(h, s, s))
+        av = g.add_tensor(pre + "av", (s, h * p))
+        g.add_node("MatMul", [a, v], [av], dims=(s, s, p), heads=h)
+        wo = g.add_tensor(pre + "wo", (h * p, e), weight=True)
+        o = g.add_tensor(pre + "o", (s, e))
+        g.add_node("MatMul", [av, wo], [o], dims=(s, h * p, e))
+        x2 = g.add_tensor(pre + "res1", (s, e))
+        g.add_node("Add", [x, o], [x2], dims=(s, e))
+        for ff in range(max(cfg.n_ffn, 1)):
+            sfx = f"_f{ff}" if cfg.n_ffn > 1 else ""
+            h2 = g.add_tensor(pre + "ln2" + sfx, (s, e))
+            g.add_node("LayerNorm", [x2], [h2], dims=(s, e))
+            w_up = g.add_tensor(pre + "w_up" + sfx, (e, f), weight=True)
+            up = g.add_tensor(pre + "up" + sfx, (s, f))
+            g.add_node("MatMul", [h2, w_up], [up], dims=(s, e, f))
+            gl = g.add_tensor(pre + "gelu" + sfx, (s, f))
+            g.add_node("GELU", [up], [gl], dims=(s, f))
+            w_dn = g.add_tensor(pre + "w_dn" + sfx, (f, e), weight=True)
+            dn = g.add_tensor(pre + "down" + sfx, (s, e))
+            g.add_node("MatMul", [gl, w_dn], [dn], dims=(s, f, e))
+            x3 = g.add_tensor(pre + "res2" + sfx, (s, e))
+            g.add_node("Add", [x2, dn], [x3], dims=(s, e))
+            x2 = x3
+        if eb:
+            # bottleneck out: intra width -> outer width, residual at outer
+            w_bo = g.add_tensor(pre + "w_bn_out", (e, eb), weight=True)
+            bo = g.add_tensor(pre + "bn_out", (s, eb))
+            g.add_node("MatMul", [x2, w_bo], [bo], dims=(s, e, eb))
+            xo = g.add_tensor(pre + "res_out", (s, eb))
+            g.add_node("Add", [outer_x, bo], [xo], dims=(s, eb))
+            x = xo
+        else:
+            x = x2
+    g.outputs.append(x)
+    return g.validate()

@@ -242,3 +242,15 @@ def shared_persistent_offsets(
         elif (ra.offset, ra.size) != (rb.offset, rb.size):
             bad.append(t)
     return bad
+
+
+def peak_lower_bound(g: Graph, persistent: tuple | set | frozenset = ()) -> int:
+    """Max over schedule steps of simultaneously-live activation bytes."""
+    lt = lifetimes(g, persistent=persistent)
+    best = 0
+    for i in range(len(g.nodes)):
+        live = sum(
+            g.tensors[t].bytes for t, (s, e) in lt.items() if s <= i <= e
+        )
+        best = max(best, live)
+    return best

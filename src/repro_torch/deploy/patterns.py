@@ -54,9 +54,11 @@ def _ceil_to(d: int, g: int) -> int:
 def opdesc_from_attrs(kind: str, attrs: dict, granule: int = ITA_GRANULE) -> OpDesc:
     """Shape/type description the support predicate sees for one operator.
 
-    The one derivation of the engine-mapping input, shared with the
-    reference's plan verifier so that the compile-time decision and a
-    post-hoc legality audit cannot diverge.
+    The one derivation of the engine-mapping input: both the lowering
+    (:func:`node_opdesc`, over graph nodes) and the static plan verifier
+    (:func:`plan_node_opdesc`, over serialized ``PlanNode``s) call it, so
+    the compile-time decision and the post-hoc legality audit cannot
+    diverge.
 
     Row (M) dims are padded to the granule — the tiler pads them with
     zero rows, which is exact for every op here — while contracting and
@@ -88,6 +90,13 @@ def opdesc_from_attrs(kind: str, attrs: dict, granule: int = ITA_GRANULE) -> OpD
 def node_opdesc(n: Node, granule: int = ITA_GRANULE) -> OpDesc:
     """:func:`opdesc_from_attrs` for a graph :class:`Node` (pre-lowering)."""
     return opdesc_from_attrs(KIND_BY_OP.get(n.op, n.op.lower()), n.attrs, granule)
+
+
+def plan_node_opdesc(n, granule: int = ITA_GRANULE) -> OpDesc:
+    """:func:`opdesc_from_attrs` for a serialized ``PlanNode``, keyed on
+    its recorded dispatch kind: the verifier audits the artifact as it
+    will run, not as it was meant to be lowered."""
+    return opdesc_from_attrs(n.kind, n.attrs, granule)
 
 
 

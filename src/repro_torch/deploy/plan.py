@@ -151,6 +151,9 @@ class DeploymentPlan:
     def fused(self) -> bool:
         return any(n.fused for n in self.nodes)
 
+    def engine_of(self, node_name: str) -> str:
+        return next(n.engine for n in self.nodes if n.name == node_name)
+
     def counts(self) -> dict[str, int]:
         ita = sum(n.engine == "ita" for n in self.nodes)
         return {"nodes": len(self.nodes), "ita": ita, "cluster": len(self.nodes) - ita}
@@ -246,8 +249,8 @@ class DeploymentPlan:
         }
 
     @staticmethod
-    def from_dict(d: dict) -> "DeploymentPlan":
-        return DeploymentPlan(
+    def from_dict(d: dict, *, validate: bool = True) -> "DeploymentPlan":
+        plan = DeploymentPlan(
             arch=d["arch"],
             seq_len=int(d["seq_len"]),
             granule=int(d["granule"]),
@@ -266,14 +269,26 @@ class DeploymentPlan:
             kv_block_size=int(d.get("kv_block_size", 0)),
             kv_blocks=int(d.get("kv_blocks", 0)),
             autotune=_tupleize(d.get("autotune", {})),
-        ).validate()
+        )
+        # validate=False loads the artifact as it is, so the static
+        # verifier can report every defect of a corrupt plan
+        return plan.validate() if validate else plan
 
     def to_json(self, indent: int | None = None) -> str:
         return json.dumps(self.to_dict(), indent=indent)
 
     @staticmethod
-    def from_json(s: str) -> "DeploymentPlan":
-        return DeploymentPlan.from_dict(json.loads(s))
+    def from_json(s: str, *, validate: bool = True) -> "DeploymentPlan":
+        return DeploymentPlan.from_dict(json.loads(s), validate=validate)
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_json(indent=1))
+
+    @staticmethod
+    def load(path: str, *, validate: bool = True) -> "DeploymentPlan":
+        with open(path) as f:
+            return DeploymentPlan.from_json(f.read(), validate=validate)
 
 
 @dataclass
@@ -299,6 +314,12 @@ class DecoderPlanPair:
     @property
     def paged(self) -> bool:
         return self.kv_blocks > 0
+
+    @property
+    def autotune(self) -> dict:
+        """The autotuner record (knobs and predicted cost), kept on the
+        decode plan, which is what the tuner optimizes."""
+        return self.decode.autotune
 
     @property
     def kv_tensors(self) -> tuple[str, ...]:
@@ -351,21 +372,31 @@ class DecoderPlanPair:
         }
 
     @staticmethod
-    def from_dict(d: dict) -> "DecoderPlanPair":
-        return DecoderPlanPair(
+    def from_dict(d: dict, *, validate: bool = True) -> "DecoderPlanPair":
+        pair = DecoderPlanPair(
             arch=d["arch"],
             seq_len=int(d["seq_len"]),
             max_len=int(d["max_len"]),
-            prefill=DeploymentPlan.from_dict(d["prefill"]),
-            decode=DeploymentPlan.from_dict(d["decode"]),
+            prefill=DeploymentPlan.from_dict(d["prefill"], validate=validate),
+            decode=DeploymentPlan.from_dict(d["decode"], validate=validate),
             kv_block_size=int(d.get("kv_block_size", 0)),
             kv_blocks=int(d.get("kv_blocks", 0)),
-        ).validate()
+        )
+        return pair.validate() if validate else pair
 
     def to_json(self, indent: int | None = None) -> str:
         return json.dumps(self.to_dict(), indent=indent)
 
     @staticmethod
-    def from_json(s: str) -> "DecoderPlanPair":
-        return DecoderPlanPair.from_dict(json.loads(s))
+    def from_json(s: str, *, validate: bool = True) -> "DecoderPlanPair":
+        return DecoderPlanPair.from_dict(json.loads(s), validate=validate)
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_json(indent=1))
+
+    @staticmethod
+    def load(path: str, *, validate: bool = True) -> "DecoderPlanPair":
+        with open(path) as f:
+            return DecoderPlanPair.from_json(f.read(), validate=validate)
 

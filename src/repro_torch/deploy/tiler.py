@@ -125,6 +125,10 @@ class MhaTiling:
         t, p = self.tile_s, self.head_dim
         return 2 * (3 * t * p + 2 * t * t + t * p)
 
+    @property
+    def n_tiles(self) -> int:
+        return math.ceil(self.seq / self.tile_s) ** 2
+
 
 @functools.lru_cache(maxsize=1024)
 def solve_mha_tiling(

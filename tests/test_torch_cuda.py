@@ -483,3 +483,50 @@ def test_engine_streams_on_the_card_equal_cpu(cuda_device, backend, paged):
     assert card == cpu
     assert all(reason == "length" for _, reason in cpu[0])
     assert cpu[0][5] == cpu[0][1] and (cpu[1][2] >= 1) == paged
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["ita", "w8a8"])
+def test_autotuned_pair_on_the_card_equals_cpu_and_corrupt_load_raises(
+        cuda_device, backend, tmp_path):
+    """The reduced autotuned paged pair (the ITA cost model's knobs: a
+    re-blocked pool and the tuned fusion boundary) serves on the card
+    the streams it serves on the CPU; a corrupted copy of it, saved to
+    disk, raises at ``CompiledModel.load`` before any session asks for
+    the card."""
+    import json
+
+    from repro_torch.deploy.engine import Engine
+    from repro_torch.deploy.verify import PlanVerificationError
+    from repro_torch.launch.cli import synthesize_prompts
+
+    cfg = reduced(get_config("olmo-1b"))
+    model = api.compile(cfg, backend=backend, seq_len=8, max_len=24, kv_block_size=4,
+                        kv_blocks=24, prefix_cache=True, autotune=True, use_cache=False)
+    assert model.artifact.autotune["knobs"]["kv_block_size"] != 4
+    assert model.verify_ms > 0.0 and model.diagnostics == ()
+    _, qp = model.bind(seed=3)
+    prompts = synthesize_prompts(cfg.vocab, n=5, prompt_len=8, extra=6, seed=4)
+
+    def run(device):
+        engine = Engine(model, 2, qp=qp, device=device)
+        handles = [engine.submit(p, 4) for p in prompts]
+        engine.run_until_idle(max_steps=500)
+        assert engine.audit_sharing() == []
+        assert engine.stats.verify_ms == model.verify_ms
+        return [(h.tokens, h.finish_reason) for h in handles]
+
+    card, cpu = run(cuda_device), run("cpu")
+    assert card == cpu and all(reason == "length" for _, reason in cpu)
+
+    payload = model.to_dict()
+    for n in payload["artifact"]["decode"]["nodes"]:
+        if n["kind"] == "cache_write_paged":
+            n["engine"] = "ita"
+            break
+    path = tmp_path / "tuned.json"
+    path.write_text(json.dumps(payload))
+    before = torch.cuda.memory_allocated()
+    with pytest.raises(PlanVerificationError, match="ENG001"):
+        api.CompiledModel.load(str(path), cfg).session(2, qp=qp, device=cuda_device)
+    assert torch.cuda.memory_allocated() == before

@@ -132,13 +132,14 @@ def test_pair_save_load_and_plan_cache(tmp_path):
 
 def test_compile_refuses_what_is_not_ported():
     cfg = t_reduced(t_get_config("olmo-1b"))
-    # the paged region and prefix_cache are ported: what is left are the
-    # reference's own option checks
+    # the paged region, prefix_cache and autotune are ported: what is left
+    # are the reference's own option checks
     assert t_api.compile(cfg, kv_block_size=16, kv_blocks=8, use_cache=False).artifact.paged
     with pytest.raises(ValueError, match="prefix_cache needs a paged decoder"):
         t_api.compile(cfg, prefix_cache=True, use_cache=False)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        t_api.compile(cfg, autotune=True, use_cache=False)
+    assert t_api.compile(cfg, autotune=True, use_cache=False).artifact.autotune["knobs"]
+    with pytest.raises(ValueError, match="autotune enumerates decode-step knobs"):
+        t_api.compile(t_reduced(t_get_config("mobilebert")), autotune=True, use_cache=False)
     with pytest.raises(ValueError, match="pair"):
         t_api.compile(cfg, kv_block_size=16, use_cache=False)
     moe = cfg.replace(name="dense-moe-probe", n_experts=4, top_k=2)
