@@ -118,6 +118,22 @@ exit code and no result line):
    ``EngineStats.verify_ms`` > 0; tok/s, TPOT, step p50 / p99, prefill
    dispatches and ms per decode step print for both engines (the tuned
    knobs minimise the ITA ASIC model's step, not the card's).
+10. sanitize — the concurrency and KV-lifetime sanitizer, under
+   ``REPRO_SANITIZE=1`` for this phase only: ``python -m
+   repro_torch.deploy.sanitize --interleavings`` (the lock-order and
+   affinity lints over the port's ``deploy/``, the bounded interleaving
+   checks) must exit 0 with no finding; a fresh paged ``ita`` engine with
+   the prefix cache (tracked locks, a shadow block pool) serves the engine
+   phase's 12 requests at OLMo-1B's full width with the same weights and
+   must stream the same tokens with no lockdep or shadow finding, a clean
+   sharing audit and a shadow whose block counts equal the allocator's;
+   8 concurrent HTTP streams from its loop thread must equal them again,
+   with ``/v1/stats`` reporting the sanitizer on and clean.  Then one slot
+   attaches 200 shared rows, its copy-on-write is skipped on purpose, and
+   its tail chunk must raise ``SanitizerError`` (BLK003) on the host with
+   no kernel launched and the card's pool bit-identical.  The sanitized
+   engine's tok/s, TPOT and step percentiles print beside the unsanitized
+   engine's, with the host ms the shadow hooks add per dispatch.
 
 It prints the kernels line (JSON), the nvidia-smi line, and last the
 contract line {"ok": true, "device": {...}}.  It exits non-zero, printing
@@ -1292,12 +1308,13 @@ def olmo_gemms(model) -> int:
 
 
 def serve_engine(torch, card: str, dev, model, qp, prompts: list, what: str, launches: dict,
-                 *, tag: str = "[engine]", prefix_counts: bool = True):
+                 *, tag: str = "[engine]", prefix_counts: bool = True, on_ready=None):
     """The 12 requests through an ``Engine`` over ``model`` on ``dev``
     (after a warm-up request), request ``ENGINE["cancel"]`` cancelled
     while resident; checks the launches, the streams and, where
-    ``prefix_counts``, the prefix cache's counts.  Returns the engine,
-    the streams, the stats and the seconds of the run."""
+    ``prefix_counts``, the prefix cache's counts.  ``on_ready(engine)``
+    runs after the warm-up, just before the timed run.  Returns the
+    engine, the streams, the stats and the seconds of the run."""
     from repro_torch import kernels
     from repro_torch.deploy.engine import Engine
     from repro_torch.launch.serve import DispatchCounter
@@ -1316,6 +1333,8 @@ def serve_engine(torch, card: str, dev, model, qp, prompts: list, what: str, lau
     counter.reset()
     for w in kernels.wrappers().values():
         w.launches = 0
+    if on_ready is not None:
+        on_ready(engine)
     handles = []
 
     def cancel_on(tok):
@@ -1353,6 +1372,61 @@ def serve_engine(torch, card: str, dev, model, qp, prompts: list, what: str, lau
     return engine, streams, stats, secs
 
 
+def serve_http(card: str, dev, engine, prompts: list, want: list, launches: dict,
+               tag: str) -> dict:
+    """The first ``ENGINE["http"]`` requests behind ``AsyncEngine`` +
+    ``ServingFrontend`` over ``engine`` (its prefix cache emptied first),
+    as concurrent HTTP streams that must equal ``want``; the loop thread
+    launches.  Checks the launches; returns ``/v1/stats``."""
+    import threading
+
+    from repro_torch.deploy.serving import AsyncEngine, ServingFrontend
+    from repro_torch.launch.cli import http_generate, http_get_json
+    from repro_torch.launch.serve import DispatchCounter
+
+    e = ENGINE
+    engine.prefix_index.drop_all()
+    engine.reset_stats()
+    counter = DispatchCounter(engine.session)
+    n = e["http"]
+    got = [None] * n
+    errors = []
+    aengine = AsyncEngine(engine)
+    frontend = ServingFrontend(aengine, port=0)
+    host, port = frontend.start()
+
+    def client(i):
+        try:
+            events = list(http_generate(host, port, prompts[i], e["gen"], timeout=900))
+            toks = [ev["token"] for ev in events if "token" in ev]
+            require(events[-1]["done"] and events[-1]["tokens"] == toks,
+                    f"http request {i}: the summary line differs from the stream")
+            got[i] = (toks, events[-1]["finish_reason"])
+        except Exception as exc:  # noqa: BLE001 - reported by the caller's thread
+            errors.append((i, exc))
+
+    t = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    secs = time.perf_counter() - t
+    stats_http = http_get_json(host, port, "/v1/stats")
+    frontend.shutdown(drain=True, timeout=300)
+    require(not any(th.is_alive() for th in threads), "http clients did not finish")
+    require(not errors, f"http clients failed: {errors}")
+    require(got == want[:n], f"{tag} the HTTP streams differ from the sync engine's")
+    stats = engine.stats_snapshot()
+    check_engine_launches(dev, "ita over HTTP", engine.session.model, counter, stats, launches)
+    require(stats_http["requests_completed"] == n, f"/v1/stats: {stats_http}")
+    log(f"  {tag} AsyncEngine + ServingFrontend on {card}: {n} concurrent HTTP streams "
+        f"equal the sync engine's in {secs:.2f}s; {stats.prefill_dispatches} prefill "
+        f"dispatches, {stats.decode_dispatches} decode steps from the loop thread; "
+        f"{stats.summary()}")
+    return stats_http
+
+
 def engine_phase(torch, card: str, dev) -> tuple[dict[str, int], dict]:
     """OLMo-1B at full width through the request-level engine on the card:
     ``ita`` with the prefix cache, ``w8a8`` with it and ``ita`` without it
@@ -1360,14 +1434,9 @@ def engine_phase(torch, card: str, dev) -> tuple[dict[str, int], dict]:
     requests over HTTP from its loop thread, and must stream them again.
     Returns the launches and, for the audit phase, the weights, the
     prompts, the ``ita`` engine's streams and its stats and seconds."""
-    import threading
-
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.deploy import api
-    from repro_torch.deploy.serving import AsyncEngine, ServingFrontend
-    from repro_torch.launch.cli import http_generate, http_get_json
-    from repro_torch.launch.serve import DispatchCounter
 
     cfg = get_config("olmo-1b")
     e = ENGINE
@@ -1400,48 +1469,10 @@ def engine_phase(torch, card: str, dev) -> tuple[dict[str, int], dict]:
         f"{e['cancel_after']} tokens); the sharing audit is clean")
 
     # the same ita engine behind the HTTP frontend: the loop thread launches
-    ita.prefix_index.drop_all()
-    ita.reset_stats()
-    counter = DispatchCounter(ita.session)
-    n = e["http"]
-    got = [None] * n
-    errors = []
-    aengine = AsyncEngine(ita)
-    frontend = ServingFrontend(aengine, port=0)
-    host, port = frontend.start()
-
-    def client(i):
-        try:
-            events = list(http_generate(host, port, prompts[i], e["gen"], timeout=900))
-            toks = [ev["token"] for ev in events if "token" in ev]
-            require(events[-1]["done"] and events[-1]["tokens"] == toks,
-                    f"http request {i}: the summary line differs from the stream")
-            got[i] = (toks, events[-1]["finish_reason"])
-        except Exception as exc:  # noqa: BLE001 - reported by the caller's thread
-            errors.append((i, exc))
-
-    t = time.perf_counter()
-    threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
-    for th in threads:
-        th.start()
-    for th in threads:
-        th.join(timeout=900)
-    secs = time.perf_counter() - t
-    stats_http = http_get_json(host, port, "/v1/stats")
-    frontend.shutdown(drain=True, timeout=300)
-    require(not any(th.is_alive() for th in threads), "http clients did not finish")
-    require(not errors, f"http clients failed: {errors}")
-    require(got == want[:n], "engine: the HTTP streams differ from the sync engine's")
-    stats = ita.stats_snapshot()
-    check_engine_launches(dev, "ita over HTTP", ita.session.model, counter, stats, launches)
-    require(stats_http["requests_completed"] == n and not stats_http["sanitize"]["enabled"],
-            f"/v1/stats: {stats_http}")
-    log(f"  [engine] AsyncEngine + ServingFrontend on {card}: {n} concurrent HTTP streams "
-        f"equal the sync engine's in {secs:.2f}s; {stats.prefill_dispatches} prefill "
-        f"dispatches, {stats.decode_dispatches} decode steps from the loop thread; "
-        f"{stats.summary()}")
+    stats_http = serve_http(card, dev, ita, prompts, want, launches, "[engine]")
+    require(not stats_http["sanitize"]["enabled"], f"/v1/stats: {stats_http}")
     log(f"  [engine] phase took {time.perf_counter() - t_phase:.1f}s")
-    del ita, aengine
+    del ita
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return launches, dict(qp=qp, prompts=prompts, streams=want, stats=ita_stats,
@@ -1603,6 +1634,172 @@ def audit_phase(torch, card: str, dev, eng: dict) -> dict[str, int]:
     return launches
 
 
+#: rows of request 0's prompt that the seeded copy-on-write check shares
+#: (12.5 blocks of 16: the last block partial), and the tail chunk's start
+SANITIZE_SHARED = 200
+SANITIZE_TAIL = 128
+
+
+def time_shadow_hooks(shadow, stats: dict) -> None:
+    """Wrap a ``ShadowPool``'s hooks (on the instance) so that each call
+    adds its host seconds and one call to ``stats``."""
+    for name in ("allocate", "fork", "pre_cow", "cow", "free", "write"):
+        def timed(*args, _fn=getattr(shadow, name)):
+            t = time.perf_counter()
+            try:
+                return _fn(*args)
+            finally:
+                stats["s"] += time.perf_counter() - t
+                stats["calls"] += 1
+        setattr(shadow, name, timed)
+
+
+def sanitize_phase(torch, card: str, dev, eng: dict) -> dict[str, int]:
+    """The concurrency and KV-lifetime sanitizer on the main path, under
+    ``REPRO_SANITIZE=1`` (restored after): (a) ``python -m
+    repro_torch.deploy.sanitize --interleavings`` clean; (b) a fresh paged
+    ``ita`` engine with the prefix cache at OLMo-1B's full width serves the
+    [engine] phase's 12 requests with its streams and no finding; (c) 8
+    concurrent HTTP streams through its loop thread, equal again, and
+    ``/v1/stats`` reporting the sanitizer on and clean; (d) a seeded
+    skipped copy-on-write refused with BLK003 before its launch, the card's
+    pool bit-identical; (e) the sanitized engine's times beside the
+    unsanitized one's."""
+    import os
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.deploy import api, sanitize
+    from repro_torch.launch.serve import DispatchCounter
+
+    launches = dict.fromkeys(kernels.wrappers(), 0)
+    e = ENGINE
+    t_phase = time.perf_counter()
+    prev = os.environ.get("REPRO_SANITIZE")
+    os.environ["REPRO_SANITIZE"] = "1"
+    try:
+        sanitize.reset_runtime()
+
+        # (a) the static lints and the bounded interleaving checks
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-W", "ignore", "-m", "repro_torch.deploy.sanitize",
+             "--interleavings"], capture_output=True, text=True, timeout=300, cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        last = (res.stdout.strip().splitlines() or [""])[-1]
+        require(res.returncode == 0 and last.endswith("OK — 0 error(s), 0 warning(s)"),
+                f"sanitize: the CLI exited {res.returncode}: {res.stdout}{res.stderr}")
+        log(f"  [sanitize] python -m repro_torch.deploy.sanitize --interleavings: rc 0, "
+            f"{last.split(': ', 1)[-1]} ({time.perf_counter() - t0:.1f}s)")
+
+        # (b) a fresh sanitized engine: its locks and shadow pool are built now
+        model = api.compile(get_config("olmo-1b"), backend="ita", seq_len=e["seq_len"],
+                            max_len=e["max_len"], kv_block_size=e["block"],
+                            kv_blocks=e["kv_blocks"], prefix_cache=True, use_cache=False)
+        hooks = {"s": 0.0, "calls": 0}
+
+        engine, streams, stats, secs = serve_engine(
+            torch, card, dev, model, eng["qp"], eng["prompts"], "ita, sanitized", launches,
+            tag="[sanitize]",
+            on_ready=lambda engine: time_shadow_hooks(engine.session.allocator.shadow, hooks))
+        alloc = engine.session.allocator
+        shadow = alloc.shadow
+        require(isinstance(engine._lock, sanitize._TrackedLock) and shadow is not None
+                and shadow.n_blocks == e["kv_blocks"],
+                "sanitize: the engine was built without its tracked lock or shadow pool")
+        require(streams == eng["streams"], "sanitize: the sanitized engine streams other tokens")
+        require(sanitize.runtime_findings() == (),
+                f"sanitize: lockdep findings {sanitize.runtime_findings()}")
+        require(shadow.findings == [] and shadow.audit(alloc) == [],
+                f"sanitize: shadow findings {shadow.findings}")
+        require(engine.audit_sharing(source="sanitizer") == [],
+                "sanitize: the sharing audit found faults")
+        snap = shadow.snapshot()
+        live = {"free": alloc.n_free, "shared": alloc.n_shared,
+                "exclusive + cow-pending": alloc.n_used - alloc.n_shared}
+        mirror = {"free": snap["free"], "shared": snap["shared"],
+                  "exclusive + cow-pending": snap["exclusive"] + snap["cow-pending"]}
+        require(mirror == live, f"sanitize: shadow {snap}, allocator {live}")
+        dispatches = stats.prefill_dispatches + stats.decode_dispatches
+        log(f"  [sanitize] the sanitized engine's {len(streams)} streams equal the [engine] "
+            f"phase's; 0 lockdep findings, 0 shadow findings, audit and "
+            f"audit_sharing(source='sanitizer') clean; shadow {snap}, allocator {live}")
+
+        # (c) the same engine behind the HTTP frontend, from its loop thread
+        stats_http = serve_http(card, dev, engine, eng["prompts"], eng["streams"], launches,
+                                "[sanitize]")
+        sz = stats_http["sanitize"]
+        require(sz == {"enabled": True, "lockdep_findings": 0, "shadow_findings": 0,
+                       "audit_findings": 0} and sanitize.runtime_findings() == (),
+                f"sanitize: /v1/stats {sz}")
+        log(f"  [sanitize] /v1/stats sanitize section {json.dumps(sz)}")
+
+        # (d) a seeded skipped copy-on-write: refused on the host, before the launch
+        sess = engine.session
+        sess.rebind_thread()  # the loop thread has stopped
+        counter = DispatchCounter(sess)
+        wrappers = kernels.wrappers()
+        prompt = eng["prompts"][0]
+        sess.prefill_slot(0, torch.tensor([prompt[:SANITIZE_SHARED]], dtype=torch.int32))
+        sess.attach_prefix(1, sess.block_chain(0), SANITIZE_SHARED)
+        tail = torch.tensor([prompt[SANITIZE_TAIL: SANITIZE_TAIL + e["seq_len"]]],
+                            dtype=torch.int32)
+        sess._cow_range = lambda *a, **k: None  # seeded: slot 1 skips its copy
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        pool = {part: t.clone() for part, t in sess.kv_pool.items()}
+        before = ({n: w.launches for n, w in wrappers.items()}, dict(counter.calls),
+                  json.dumps(counter.launches))
+        raised = None
+        try:
+            sess.prefill_chunks({1: (tail, SANITIZE_TAIL)})
+        except sanitize.SanitizerError as exc:
+            raised = exc
+        finally:
+            del sess._cow_range
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        require(raised is not None and [d.rule for d in raised.diagnostics] == ["BLK003"],
+                f"sanitize: the skipped copy-on-write raised {raised!r}")
+        after = ({n: w.launches for n, w in wrappers.items()}, dict(counter.calls),
+                 json.dumps(counter.launches))
+        require(after == before, f"sanitize: launches {before} -> {after} for the refused call")
+        same = all(torch.equal(sess.kv_pool[part], pool[part]) for part in pool)
+        require(same, "sanitize: the pool changed under the refused call")
+        for slot in (1, 0):
+            sess.free_slot(slot)
+        require(shadow.audit(alloc) == [], "sanitize: the refused call left the pool unsound")
+        for name, w in wrappers.items():
+            launches[name] += w.launches
+            w.launches = 0
+        log(f"  [sanitize] slot 1 attached {SANITIZE_SHARED} shared rows, its copy-on-write "
+            f"skipped, tail chunk at {SANITIZE_TAIL}: SanitizerError "
+            f"{raised.diagnostics[0].format()}; 0 launches, the pool "
+            f"({sum(t.numel() for t in pool.values())} bytes on {sess.device}) bit-identical")
+
+        # (e) times, for the record only
+        for label, st, sec in (("unsanitized ([engine])", eng["stats"], eng["secs"]),
+                               ("sanitized", stats, secs)):
+            log(f"  [sanitize] ita engine {label} on {card}: {st.tokens_per_s():.1f} gen tok/s, "
+                f"TPOT p50/p99 {st.tpot(50) * 1e3:.1f}/{st.tpot(99) * 1e3:.1f} ms, step "
+                f"p50/p99 {st.step_latency_p50() * 1e3:.1f}/"
+                f"{st.step_latency_p99() * 1e3:.1f} ms, {st.prefill_dispatches} prefill "
+                f"dispatches, {st.decode_dispatches} decode steps, {sec:.2f}s")
+        log(f"  [sanitize] shadow hooks, on the host of {card}: {hooks['s'] * 1e3:.3f} ms over "
+            f"{hooks['calls']} calls in {dispatches} dispatches: "
+            f"{hooks['s'] * 1e3 / max(dispatches, 1):.4f} ms per dispatch")
+    finally:
+        if prev is None:
+            os.environ.pop("REPRO_SANITIZE", None)
+        else:
+            os.environ["REPRO_SANITIZE"] = prev
+    log(f"  [sanitize] phase took {time.perf_counter() - t_phase:.1f}s")
+    del engine, sess
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1670,6 +1867,11 @@ def main() -> int:
     phase("[audit] the static plan verifier on every artifact of the run, a corrupt plan "
           "refused at load, and the autotuned OLMo-1B pair through the engine")
     for name, n in audit_phase(torch, card, dev, engine_run).items():
+        launches[name] += n
+    phase("[sanitize] the concurrency and KV-lifetime sanitizer: static lints and "
+          "interleaving checks, the sanitized engine at full width, 8 HTTP streams, and a "
+          "seeded skipped copy-on-write refused before its launch")
+    for name, n in sanitize_phase(torch, card, dev, engine_run).items():
         launches[name] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]

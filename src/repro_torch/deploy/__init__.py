@@ -12,7 +12,11 @@ session.  ``verify`` is the static plan verifier that audits every
 repro_torch.deploy.verify`` audits artifacts on disk); ``costmodel`` is
 the paper's analytical model of the ITA ASIC, which
 ``compile(autotune=True)`` (``autotune``) argmins over a decoder's
-bit-neutral knobs.
+bit-neutral knobs.  ``sanitize`` is the concurrency & KV-lifetime
+sanitizer of the serving runtime: the static lock-order and affinity
+lints and bounded interleaving checks (``python -m
+repro_torch.deploy.sanitize``) and, under ``REPRO_SANITIZE=1``, lockdep
+locks and the shadow block pool.
 """
 
 from repro_torch.deploy.api import (  # noqa: F401
@@ -43,6 +47,15 @@ from repro_torch.deploy.engine import (  # noqa: F401
 )
 from repro_torch.deploy.executor import PlanBindingError  # noqa: F401
 from repro_torch.deploy.memory import MemoryPlanError  # noqa: F401
+from repro_torch.deploy.sanitize import (  # noqa: F401
+    SanitizerDiagnostic,
+    SanitizerError,
+    ShadowPool,
+    affinity_report,
+    check_interleavings,
+    lint_affinity,
+    lint_lock_order,
+)
 from repro_torch.deploy.verify import (  # noqa: F401
     KVSharingState,
     KVWrite,

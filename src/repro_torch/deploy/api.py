@@ -768,6 +768,8 @@ class InferenceSession:
                 self._release_blocks(b)
             for b in range(self.batch_size):
                 self._grow_table(b, need)
+            for b in range(self.batch_size):
+                self._note_writes(b, 0, s)
             logits = self._chunk(tokens, 0, self._tables)
         else:
             logits, cache = self._prefill(tokens)
@@ -841,6 +843,7 @@ class InferenceSession:
         self._check_chunk(slot, start)
         self._grow_table(slot, blocks_for_rows(start + s, self._pair.kv_block_size))
         self._cow_range(slot, start, start + s)
+        self._note_writes(slot, start, start + s)
         logits = self._chunk(tokens, start, self._tables[slot: slot + 1])
         self._pos[slot] = start + s
         return logits
@@ -879,6 +882,8 @@ class InferenceSession:
             # a chunk overlapping an attached shared prefix re-writes
             # identical rows: still a write, so still copied first
             self._cow_range(slot, start, start + s)
+        for slot, (_, start) in checked.items():
+            self._note_writes(slot, start, start + s)
         tokens = torch.zeros((self.batch_size, s), dtype=torch.int32, device=self.device)
         starts = np.zeros((self.batch_size,), np.int32)
         tables = np.full_like(self._tables, SCRATCH_BLOCK)
@@ -1007,6 +1012,22 @@ class InferenceSession:
             chain[chain.index(blk)] = fresh
             self._cow_copies += 1
 
+    def _note_writes(self, slot: int, lo: int, hi: int) -> None:
+        """Tell the shadow block sanitizer (``REPRO_SANITIZE=1``) that the
+        next dispatch writes ``slot``'s cache rows ``[lo, hi)``: it fails
+        with BLK001 (freed block) or BLK003 (still-shared block, i.e. a
+        skipped copy-on-write) here, on the host and before the launch,
+        instead of letting the scatter corrupt another request's rows.
+        Reads the host-side block table only."""
+        shadow = self._alloc.shadow
+        if shadow is None or hi <= lo:
+            return
+        bsz = self._pair.kv_block_size
+        for i in range(lo // bsz, blocks_for_rows(hi, bsz)):
+            blk = int(self._tables[slot, i])
+            if blk != SCRATCH_BLOCK:
+                shadow.write(slot, blk, self._alloc)
+
     def decode(self, tokens, pos=None, *, active=None) -> torch.Tensor:
         """One batched decode dispatch.
 
@@ -1065,6 +1086,7 @@ class InferenceSession:
             for b in range(self.batch_size):
                 if act[b]:
                     self._cow_range(b, int(pos[b]), int(pos[b]) + 1)
+                    self._note_writes(b, int(pos[b]), int(pos[b]) + 1)
             logits, self._pool = execute_decode_paged(
                 self._pair, self.weights, self._pool, tokens, torch.from_numpy(pos.copy()),
                 torch.from_numpy(self._tables.copy()).to(self.device),

@@ -535,12 +535,11 @@ class Engine:
         # queue-depth stats — so submit()/queued-cancel() are safe from
         # any thread while the loop thread admits.  Slot/device state is
         # loop-thread-only and never touched under this lock's waiters.
-        # Reentrant: submit() holds it across _note_queue().  (The JAX
-        # package tracks it under REPRO_SANITIZE=1; the port refuses that
-        # switch until its sanitizer is ported.)
+        # Reentrant: submit() holds it across _note_queue().  Under
+        # REPRO_SANITIZE=1 it is lockdep-tracked (sanitize.LOCK_LATTICE).
         self._lock = make_lock("engine.lock", reentrant=True)
         # the scheduler has no lock of its own — the engine serializes
-        # every mutation under _lock
+        # every mutation under _lock; the sanitizer proves it per call
         self.scheduler.guard_lock = self._lock
         self.stats = EngineStats(
             max_batch=self.max_batch,

@@ -12,10 +12,6 @@ pooled: the compile-time budget is ``kv_blocks`` blocks *total*, not
 management Deeploy applies to KV caches on MMU-less targets
 (arXiv 2408.04413) transplanted to the batched serving arena.
 
-The JAX package's allocator also feeds a shadow block sanitizer when
-``REPRO_SANITIZE`` is set; the port has no sanitizer yet, so its
-allocator carries none.
-
 This module owns the host-side arithmetic all layers share:
 
 * :class:`BlockAllocator` — the free list.  ``InferenceSession`` holds
@@ -39,6 +35,8 @@ This module owns the host-side arithmetic all layers share:
 """
 
 from __future__ import annotations
+
+from repro_torch.deploy import sanitize as _sanitize
 
 #: physical pool index of the scratch block (see module docstring).  The
 #: pool is allocated with ``kv_blocks + 1`` physical blocks; the
@@ -130,6 +128,11 @@ class BlockAllocator:
         self._free = list(range(1, self.n_blocks + 1))
         self._owner: dict[int, int | None] = {}
         self._ref: dict[int, int] = {}
+        # shadow block-lifecycle sanitizer (REPRO_SANITIZE=1): mirrors
+        # every transition and fails with a structured BLK* diagnostic
+        # at the offending call instead of a generic ValueError later
+        self.shadow = (_sanitize.ShadowPool(self.n_blocks)
+                       if _sanitize.enabled() else None)
 
     @property
     def n_free(self) -> int:
@@ -161,6 +164,8 @@ class BlockAllocator:
         if n > len(self._free):
             raise PoolExhausted(n, len(self._free))
         taken, self._free = self._free[:n], self._free[n:]
+        if self.shadow is not None:
+            self.shadow.allocate(taken, self)
         for b in taken:
             self._owner[b] = owner
             self._ref[b] = 1
@@ -175,9 +180,11 @@ class BlockAllocator:
         at allocation time is kept (the pool rows are still theirs).
         """
         ids = [int(b) for b in blocks]
-        for b in ids:  # all checked before any refcount moves
-            if b not in self._ref:
+        for b in ids:  # caller-misuse contract first: same ValueError
+            if b not in self._ref:  # with or without the sanitizer
                 raise ValueError(f"cannot fork block {b}: not allocated")
+        if self.shadow is not None:
+            self.shadow.fork(ids, self)  # BLK001/BLK004 before mutation
         for b in ids:
             self._ref[b] += 1
         return ids
@@ -195,10 +202,14 @@ class BlockAllocator:
         b = int(block)
         if b not in self._ref:
             raise ValueError(f"cannot cow block {b}: not allocated")
+        if self.shadow is not None:
+            self.shadow.pre_cow(b, self)  # BLK001/BLK004 before mutation
         if self._ref[b] == 1:
             return b, False
         (fresh,) = self.allocate(1, owner=owner)
         self._ref[b] -= 1
+        if self.shadow is not None:
+            self.shadow.cow(b, fresh)
         return fresh, True
 
     def free(self, blocks) -> None:
@@ -206,11 +217,13 @@ class BlockAllocator:
         when its last reference is dropped (freeing an unowned or scratch
         id fails loudly — idempotence is a caller bug)."""
         ids = [int(b) for b in blocks]
-        drops: dict[int, int] = {}  # all checked before any mutation
-        for b in ids:
-            drops[b] = drops.get(b, 0) + 1
+        drops: dict[int, int] = {}  # caller-misuse contract first: same
+        for b in ids:               # ValueError with or without the
+            drops[b] = drops.get(b, 0) + 1  # sanitizer, before any mutation
             if self._ref.get(b, 0) < drops[b]:
                 raise ValueError(f"block {b} is not allocated (double free?)")
+        if self.shadow is not None:
+            self.shadow.free(ids, self)  # BLK002/BLK004 before mutation
         for b in ids:
             self._ref[b] -= 1
             if self._ref[b] == 0:

@@ -28,7 +28,9 @@ def main(argv=None):
     from repro_torch.launch.cli import (
         add_engine_args,
         add_plan_args,
+        add_sanitize_args,
         add_serving_args,
+        apply_sanitize_args,
         make_sampling,
         make_scheduler_from_args,
     )
@@ -46,7 +48,9 @@ def main(argv=None):
     add_plan_args(ap)
     add_engine_args(ap)
     add_serving_args(ap)
+    add_sanitize_args(ap)
     args = ap.parse_args(argv)
+    apply_sanitize_args(args)  # before any engine/allocator exists
 
     cfg = get_config(args.arch)
     if args.reduced:

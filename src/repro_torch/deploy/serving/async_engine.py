@@ -167,8 +167,9 @@ class AsyncEngine:
             self.engine = model
         else:
             self.engine = Engine(model, max_batch, **engine_kwargs)
-        # "serving.cv" outranks "engine.lock" in the JAX package's
-        # declared lock lattice
+        # "serving.cv" outranks "engine.lock" in the declared lattice
+        # (sanitize.LOCK_LATTICE); under REPRO_SANITIZE=1 this is a
+        # lockdep-tracked condition that flags order inversions
         self._cv = make_condition("serving.cv")
         dev = self.engine.session.device
         # the stream the session's tensors were made on (the default

@@ -1,9 +1,8 @@
 """Stdlib-only streaming HTTP frontend over :class:`AsyncEngine` (torch port).
 
 The JAX package's ``deploy/serving/frontend.py`` over the port's async
-engine, with the same routes, bodies and ``/v1/stats`` schema.  The
-port has no sanitizer yet, so the ``sanitize`` section of ``/v1/stats``
-reports ``enabled: false`` and no lockdep or shadow findings.
+engine, with the same routes, bodies and ``/v1/stats`` schema, the
+``sanitize`` section included.
 
 ``ServingFrontend`` binds a ``ThreadingHTTPServer`` (one thread per
 connection — stdlib ``http.server``, no third-party framework) to an
@@ -55,6 +54,7 @@ def _stats_payload(engine: AsyncEngine) -> dict:
     # appending to the live EngineStats lists while we read them here
     s = engine.stats_snapshot()
     eng = engine.engine
+    shadow = eng.session.allocator.shadow if eng.paged else None
     return {
         "requests_submitted": s.requests_submitted,
         "requests_completed": s.requests_completed,
@@ -84,13 +84,13 @@ def _stats_payload(engine: AsyncEngine) -> dict:
         "blocks_shared": s.blocks_shared,
         "cow_copies": s.cow_copies,
         "scheduler": eng.scheduler_snapshot(),
-        # concurrency / KV-lifetime sanitizer counters: the port runs
-        # unsanitized (no lockdep, no shadow pool); "audit_findings" are
-        # point-in-time audit_sharing results
+        # concurrency / KV-lifetime sanitizer counters (all zero unless
+        # the process runs with REPRO_SANITIZE=1); "audit_findings" are
+        # point-in-time audit_sharing results, the others continuous
         "sanitize": {
             "enabled": sanitize.enabled(),
             "lockdep_findings": len(sanitize.runtime_findings()),
-            "shadow_findings": 0,
+            "shadow_findings": len(shadow.findings) if shadow else 0,
             "audit_findings": s.audit_findings,
         },
     }

@@ -111,12 +111,10 @@ class Scheduler:
         """Prove the engine's serialization contract on every mutation.
 
         The engine installs its submission lock as ``self.guard_lock``;
-        in the JAX package, under ``REPRO_SANITIZE=1``, that lock is
-        lockdep-tracked and this raises a LOCK006 diagnostic if a mutating
-        call arrives without it held.  The port's locks are plain, so the
-        check is a no-op until the sanitizer is ported.  Free-standing
-        schedulers (tests, benchmarks) have no ``guard_lock`` and skip
-        the check."""
+        under ``REPRO_SANITIZE=1`` that lock is lockdep-tracked and this
+        raises a LOCK006 diagnostic if a mutating call arrives without
+        it held.  Free-standing schedulers (tests, benchmarks) have no
+        ``guard_lock`` and skip the check."""
         lock = getattr(self, "guard_lock", None)
         if lock is not None:
             from repro_torch.deploy.sanitize import require_held

@@ -5,12 +5,10 @@ the request-level engine (``repro_torch.deploy.engine.Engine``) and of its
 admission policy, so ``python -m repro_torch.launch.serve`` and
 ``python -m repro_torch.deploy.serving`` present one surface, the JAX
 package's; ``add_plan_args`` installs the port's compile and bind block
-that both share.  ``synthesize_prompts`` draws the engine's traffic from a
-seeded ``numpy.random.Generator``; ``http_generate`` / ``http_get_json``
-are stdlib clients of the serving frontend.
-
-The JAX package's ``--sanitize`` block waits with the sanitizer (ROADMAP
-queue 1, item 3).
+that both share, and ``add_sanitize_args`` / ``apply_sanitize_args`` the
+``--sanitize`` switch.  ``synthesize_prompts`` draws the engine's traffic
+from a seeded ``numpy.random.Generator``; ``http_generate`` /
+``http_get_json`` are stdlib clients of the serving frontend.
 """
 
 from __future__ import annotations
@@ -80,6 +78,31 @@ def add_serving_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--aging-s", type=float, default=None,
                     help="priority-deadline aging interval: a queued request gains one "
                          "priority level per this many seconds waited")
+
+
+def add_sanitize_args(ap: argparse.ArgumentParser) -> None:
+    """Install the shared concurrency-sanitizer flag.
+
+    ``--sanitize`` turns on the lockdep runtime checker and the shadow
+    block-lifecycle tracker (:mod:`repro_torch.deploy.sanitize`) for this
+    process — equivalent to running with ``REPRO_SANITIZE=1``.
+    """
+    ap.add_argument(
+        "--sanitize", action="store_true",
+        help="enable the concurrency & KV-lifetime sanitizer (lockdep "
+             "lock-order checking + shadow block tracking; same as "
+             "REPRO_SANITIZE=1)")
+
+
+def apply_sanitize_args(args) -> None:
+    """Flip the sanitizer env switch from the parsed ``--sanitize`` flag.
+
+    Must run *before* any engine/allocator is constructed — the lock
+    wrappers and the shadow pool are chosen at construction time."""
+    if getattr(args, "sanitize", False):
+        import os
+
+        os.environ["REPRO_SANITIZE"] = "1"
 
 
 def make_scheduler_from_args(args):

@@ -27,6 +27,8 @@ prefill in chunks, and the summary gives the pool's size and its free
 blocks at the end.  ``--scheduler`` / ``--max-queue`` / ``--aging-s``
 pick the admission policy, ``--sampling temperature`` the sampler.
 ``--head-by-head`` lowers an encoder with the paper's per-head schedule.
+``--sanitize`` (``REPRO_SANITIZE=1``) serves under the concurrency and
+KV-lifetime sanitizer: lockdep-tracked locks and the shadow block pool.
 
 ``--backend w8a8`` runs the paper-faithful integer arithmetic instead of
 the kernel backend (on the card its rowwise softmax is the ``itamax``
@@ -52,7 +54,9 @@ from repro_torch.deploy.paging import blocks_for_rows
 from repro_torch.launch.cli import (
     add_engine_args,
     add_plan_args,
+    add_sanitize_args,
     add_serving_args,
+    apply_sanitize_args,
     make_sampling,
     make_scheduler_from_args,
     resolve_requests,
@@ -355,12 +359,14 @@ def main(argv=None):
     add_plan_args(ap)
     add_engine_args(ap)
     add_serving_args(ap)
+    add_sanitize_args(ap)
     ap.add_argument("--head-by-head", action="store_true",
                     help="encoder: lower with the paper's per-head MHA schedule")
     ap.add_argument("--profile", action="store_true",
                     help="trace one batch (encoder) or two engine steps (decoder) and print "
                          "device time by kernel")
     args = ap.parse_args(argv)
+    apply_sanitize_args(args)  # before any engine/allocator exists
 
     cfg = get_config(args.arch)
     if args.reduced:

@@ -530,3 +530,42 @@ def test_autotuned_pair_on_the_card_equals_cpu_and_corrupt_load_raises(
     with pytest.raises(PlanVerificationError, match="ENG001"):
         api.CompiledModel.load(str(path), cfg).session(2, qp=qp, device=cuda_device)
     assert torch.cuda.memory_allocated() == before
+
+
+@pytest.mark.cuda
+def test_skipped_cow_refused_before_launch_on_the_card(cuda_device, monkeypatch):
+    """Under ``REPRO_SANITIZE=1``, a paged ``ita`` session on the card whose
+    slot skips its copy-on-write: the tail chunk into the shared blocks
+    raises ``SanitizerError`` (BLK003) on the host, before any launch, and
+    the card's pool stays bit-identical; with the copy restored the same
+    chunk runs and launches the prefill's GEMMs."""
+    from repro_torch.deploy import sanitize
+
+    monkeypatch.setenv("REPRO_SANITIZE", "1")
+    cfg = reduced(get_config("olmo-1b"))
+    model = api.compile(cfg, backend="ita", seq_len=8, max_len=24, kv_block_size=4,
+                        kv_blocks=12, use_cache=False)
+    _, qp = model.bind(seed=0)
+    sess = model.session(2, qp=qp)
+    assert sess.kv_pool["k"].is_cuda and sess.allocator.shadow is not None
+    gemms = sum(n.kind == "gemm" and n.engine == "ita"
+                for n in model.artifact.prefill.flat_nodes())
+    prompt = torch.randint(0, cfg.vocab, (1, 16), generator=torch.Generator().manual_seed(6),
+                           dtype=torch.int32)
+    sess.prefill_slot(0, prompt[:, :10])
+    sess.attach_prefix(1, sess.block_chain(0), 10)  # a partial last block, shared
+    sess._cow_range = lambda *a, **k: None  # seeded: slot 1 skips its copy
+    torch.cuda.synchronize()
+    pool = {part: t.clone() for part, t in sess.kv_pool.items()}
+    before = int8_gemm.launches
+    with pytest.raises(sanitize.SanitizerError) as ei:
+        sess.prefill_chunks({1: (prompt[:, 8:16], 8)})
+    del sess._cow_range
+    torch.cuda.synchronize()
+    assert [d.rule for d in ei.value.diagnostics] == ["BLK003"]
+    assert int8_gemm.launches == before
+    assert all(torch.equal(sess.kv_pool[part], pool[part]) for part in pool)
+    sess.prefill_chunks({1: (prompt[:, 8:16], 8)})
+    torch.cuda.synchronize()
+    assert int8_gemm.launches == before + gemms and sess.cow_copies == 1
+    assert sess.allocator.shadow.audit(sess.allocator) == []

@@ -13,8 +13,8 @@ Cases of the reference's ``tests/test_serving.py`` on reduced OLMo-1B:
   cancels from other threads, concurrent producers, a loop that dies);
 * the session's thread affinity, the latency statistics, the stdlib HTTP
   frontend on port 0 and ``python -m repro_torch.deploy.serving``;
-* the sanitizer switch: with ``REPRO_SANITIZE`` set the port refuses to
-  run unsanitized.
+* the sanitizer switch: with ``REPRO_SANITIZE`` set the port never runs
+  unsanitized (tracked locks, a tracked condition and a shadow block pool).
 """
 
 import json
@@ -690,19 +690,28 @@ def test_serving_module_serves_over_http():
 
 @pytest.mark.parametrize("value", ["1", "true", "on"])
 def test_sanitize_switch_refuses_to_run_unsanitized(olmo, dense_model, monkeypatch, value):
+    """The switch turns on lockdep-tracked locks, a tracked condition and,
+    over a paged pool, the shadow block pool (a dense region has none)."""
     monkeypatch.setenv("REPRO_SANITIZE", value)
-    for fn in (sanitize.enabled, lambda: sanitize.make_lock("engine.lock"),
-               lambda: sanitize.make_condition("serving.cv")):
-        with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-            fn()
-    with pytest.raises(NotImplementedError, match="REPRO_SANITIZE"):
-        Engine(dense_model, 1, qp=olmo[3], device="cpu")
+    assert sanitize.enabled() is True
+    assert isinstance(sanitize.make_lock("engine.lock"), sanitize._TrackedLock)
+    assert isinstance(sanitize.make_condition("serving.cv"), sanitize._TrackedCondition)
+    dense = Engine(dense_model, 1, qp=olmo[3], device="cpu")
+    assert isinstance(dense._lock, sanitize._TrackedLock) and dense._lock.reentrant
+    assert dense.session.allocator is None
+    paged = Engine(_compile(olmo, paged=True), 2, qp=olmo[3], device="cpu")
+    shadow = paged.session.allocator.shadow
+    assert isinstance(shadow, sanitize.ShadowPool) and shadow.n_blocks == 14
+    paged.submit(_prompts(olmo[0], 1)[0], 2)
+    paged.run_until_idle(max_steps=50)
+    assert shadow.findings == [] and sanitize.runtime_findings() == ()
 
 
 def test_sanitize_off_is_plain_threading(monkeypatch):
     monkeypatch.setenv("REPRO_SANITIZE", "0")
     assert sanitize.enabled() is False and sanitize.runtime_findings() == ()
     lock = sanitize.make_lock("engine.lock", reentrant=True)
+    assert not isinstance(lock, sanitize._TrackedLock)
     with lock, lock:  # reentrant
         sanitize.require_held(lock, "scheduler.FIFO")
     monkeypatch.delenv("REPRO_SANITIZE")
