@@ -135,6 +135,32 @@ exit code and no result line):
    engine's tok/s, TPOT and step percentiles print beside the unsanitized
    engine's, with the host ms the shadow hooks add per dispatch.
 
+11. ptq — post-training quantization from the float models (true float32
+   matmuls: TF32 must be off).  MobileBERT at full width, batch 8 x 128:
+   float params from seed 0, 4 calibration batches from a seeded numpy
+   generator; the float forward and ``calibrate_encoder`` on the card must
+   agree with the CPU's (logits within 1e-3, the scales within 1e-5
+   relative); the params are quantized once on the host with the card's
+   scales, and the calibrated ``forward_w8a8`` on ``ita`` (int8_gemm 96x,
+   ita_attention 24x) and on ``w8a8`` (itamax 24x) must equal the CPU's bit
+   for bit.  The fidelity against the float logits (cosine, relative
+   error, argmax agreement) prints for the default and the calibrated
+   grid, with the share of the embedding table that rounds to 0, and the
+   float forward, the calibration and the integer forwards are timed.
+   OLMo-1B at full width, batch 8: float params drawn on the card, a float
+   prefill of 128 tokens and 15 greedy decode steps must agree with the
+   float forward over the same 143 tokens (within 1e-3 of the largest
+   logit); an ``ita`` session bound from the float params (quantized as
+   ``CompiledModel.bind`` does) must launch int8_gemm 112 times in its
+   prefill and give the model-level ``forward_w8a8``'s last row bit for
+   bit; its fidelity and the greedy tokens it shares with the float chain
+   print.
+12. dryrun — ``repro_torch.launch.dryrun.run_via_plan`` in-process at
+   batch 8: MobileBERT on ``ita``, MobileBERT head-by-head on ``w8a8``,
+   and OLMo-1B on ``ita`` (128-token prompt, 16 decode steps); each must
+   return 0 (the plan equals the model-level chain bit for bit) and write
+   its record and plan under ``build/``.
+
 It prints the kernels line (JSON), the nvidia-smi line, and last the
 contract line {"ok": true, "device": {...}}.  It exits non-zero, printing
 no result, when no CUDA device is available or when it is not run from a
@@ -767,11 +793,9 @@ def _greedy(torch, logits):
 
 
 def _on(qp, dev):
-    if isinstance(qp, dict):
-        return {k: _on(v, dev) for k, v in qp.items()}
-    if isinstance(qp, list):
-        return [_on(v, dev) for v in qp]
-    return qp.to(dev)
+    from repro_torch.convert import to_device
+
+    return to_device(qp, dev)
 
 
 def decoder_phase(torch, card: str, dev) -> dict[str, int]:
@@ -1800,6 +1824,278 @@ def sanitize_phase(torch, card: str, dev, eng: dict) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# ptq phase: float -> calibrate -> quantize -> the integer path
+# ---------------------------------------------------------------------------
+
+#: MobileBERT: batch, sequence and calibration batches; OLMo-1B: prompt,
+#: KV rows, batch and greedy steps of the float and int8 chains
+PTQ_ENCODER = dict(batch=8, seq=128, calib_batches=4)
+PTQ_DECODER = dict(seq_len=128, max_len=160, batch=8, steps=16)
+#: card vs CPU: the float logits (max |diff|) and the calibrated scales
+#: (relative); float32 products and reductions run in another order on
+#: the card, so these agree within float32 rounding, not bit for bit
+PTQ_LOGITS_ATOL = 1e-3
+PTQ_SCALE_RTOL = 1e-5
+#: OLMo-1B's float decode chain against its float forward over the same
+#: teacher-forced tokens: max |diff| over max(1, max |logit|)
+PTQ_CHAIN_RTOL = 1e-3
+
+
+def _counts_zero(wrappers) -> None:
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def _take(wrappers, launches: dict, dev, want: dict | None, what: str) -> dict:
+    """Add the wrappers' counts to ``launches`` and set them to 0; on the
+    card they must be ``want`` (kernels not named: 0)."""
+    got = {name: w.launches for name, w in wrappers.items()}
+    if want is not None and dev.type == "cuda":
+        full = {name: want.get(name, 0) for name in wrappers}
+        require(got == full, f"{what}: launches {got}, expected {full}")
+    for name, n in got.items():
+        launches[name] += n
+    _counts_zero(wrappers)
+    return got
+
+
+def _median_s(torch, dev, fn, reps: int = 3) -> float:
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return statistics.median(times)
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def ptq_phase(torch, card: str, dev, encoder: str = "mobilebert",
+              decoder: str = "olmo-1b") -> dict[str, int]:
+    """PTQ on the card: MobileBERT's float forward and calibration against
+    the CPU's, its calibrated integer forward on ``ita`` and ``w8a8``
+    equal to the CPU's bit for bit; OLMo-1B's float chain against its
+    float forward, its float-bound ``ita`` session against the model-level
+    ``forward_w8a8``, and the float / int8 fidelity of both."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.convert import tree_leaves
+    from repro_torch.deploy import api
+    from repro_torch.models import encoder as EN
+    from repro_torch.models import transformer as T
+    from repro_torch.quant.ptq import calibrate_encoder, quantization_error
+
+    require(not torch.backends.cuda.matmul.allow_tf32
+            and torch.get_float32_matmul_precision() == "highest",
+            "float32 matmuls must run in float32 (TF32 is on)")
+    wrappers = kernels.wrappers()
+    launches = dict.fromkeys(wrappers, 0)
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+
+    # MobileBERT: float -> calibrate on the card and on the CPU
+    cfg = get_config(encoder)
+    e = PTQ_ENCODER
+    rng = np.random.default_rng(SEED)
+    batches = [{"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (e["batch"], e["seq"]),
+                                                        dtype=np.int32))}
+               for _ in range(e["calib_batches"])]
+    params = EN.init_params(cfg, SEED)
+    params_dev = _on(params, dev)
+    batches_dev = [{k: v.to(dev) for k, v in b.items()} for b in batches]
+    with torch.no_grad():
+        fl = EN.forward(cfg, params_dev, batches_dev[0])
+        fl_cpu = EN.forward(cfg, params, batches[0])
+        err = float((fl.cpu() - fl_cpu).abs().max())
+        require(tuple(fl.shape) == (e["batch"], e["seq"], cfg.vocab)
+                and bool(torch.isfinite(fl).all()), f"float logits {tuple(fl.shape)}")
+        require(err <= PTQ_LOGITS_ATOL, f"float logits: card vs CPU max |diff| {err}")
+        qc = calibrate_encoder(cfg, params_dev, batches_dev)
+        qc_cpu = calibrate_encoder(cfg, params, batches)
+        rels = {s: _rel(getattr(qc, s), getattr(qc_cpu, s)) for s in ("s_act", "s_res", "s_w")}
+        require(max(rels.values()) <= PTQ_SCALE_RTOL, f"calibrated scales: card vs CPU {rels}")
+        log(f"  [ptq] {encoder}: float logits {tuple(fl.shape)}, card vs CPU max |diff| "
+            f"{err:.3g} (limit {PTQ_LOGITS_ATOL:g}); calibrated on {len(batches)} batches: "
+            f"s_act {qc.s_act:.9g}, s_res {qc.s_res:.9g}, s_w {qc.s_w:.9g}; card vs CPU "
+            f"relative {', '.join(f'{k} {v:.3g}' for k, v in rels.items())} (limit "
+            f"{PTQ_SCALE_RTOL:g})")
+
+        # quantize once on the host with the card's scales; the integer
+        # forwards on the card equal the CPU's bit for bit
+        qp = EN.quantize_params(cfg, params, qc)
+        qp_dev = _on(qp, dev)
+        q_default = EN.quantize_params(cfg, params)
+        per_fwd = {"ita": dict(int8_gemm=4 * cfg.n_layers, ita_attention=cfg.n_layers),
+                   "w8a8": dict(itamax=cfg.n_layers)}
+        outs = {}
+        for be in ("ita", "w8a8"):
+            _counts_zero(wrappers)
+            outs[be] = EN.forward_w8a8(cfg, qp_dev, batches_dev[0], q=qc, backend=be)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            _take(wrappers, launches, dev, per_fwd[be], f"ptq {encoder} {be}")
+            want = EN.forward_w8a8(cfg, qp, batches[0], q=qc, backend=be)
+            require(torch.equal(outs[be].cpu(), want),
+                    f"ptq {encoder} {be}: calibrated forward_w8a8 card != CPU")
+        _counts_zero(wrappers)
+        default = EN.forward_w8a8(cfg, _on(q_default, dev), batches_dev[0], backend="ita")
+        _take(wrappers, launches, dev, per_fwd["ita"], f"ptq {encoder} default grid")
+        for label, out, table in (("default grid", default, q_default["embed"]["table_q"]),
+                                  ("calibrated", outs["ita"], qp["embed"]["table_q"])):
+            m = quantization_error(fl, out)
+            zero = float((table == 0).float().mean())
+            log(f"  [ptq] {encoder} ita vs float, {label}: cosine {m['cosine']:.6f}, rel_err "
+                f"{m['rel_err']:.6f}, argmax agreement {m['argmax_agreement']:.6f}; "
+                f"embedding table entries at 0 on the residual grid {zero:.6f}")
+        m = quantization_error(outs["ita"], outs["w8a8"])
+        log(f"  [ptq] {encoder} calibrated ita vs w8a8 (flash vs rowwise ITAMax): cosine "
+            f"{m['cosine']:.6f}, argmax agreement {m['argmax_agreement']:.6f}")
+        t_float = _median_s(torch, dev, lambda: EN.forward(cfg, params_dev, batches_dev[0]))
+        t_cal = _median_s(torch, dev, lambda: calibrate_encoder(cfg, params_dev, batches_dev),
+                          reps=1)
+        t_int = {be: _median_s(torch, dev, lambda be=be: EN.forward_w8a8(
+            cfg, qp_dev, batches_dev[0], q=qc, backend=be)) for be in ("ita", "w8a8")}
+        _take(wrappers, launches, dev, None, "ptq timing")
+        log(f"  [ptq] {encoder} batch {e['batch']}x{e['seq']} on {card}: float forward "
+            f"{1e3 * t_float:.3f} ms, calibration ({len(batches)} batches) {t_cal:.3f} s, "
+            f"calibrated forward_w8a8 ita {1e3 * t_int['ita']:.3f} ms, w8a8 "
+            f"{1e3 * t_int['w8a8']:.3f} ms (median of 3, host clock)")
+    del params_dev, qp_dev
+
+    # OLMo-1B: the float chain against the float forward, then the
+    # float-bound ita session against the model-level integer forward
+    cfg = get_config(decoder)
+    d = PTQ_DECODER
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, SEED, device=dev)
+    log(f"  [ptq] {decoder}: float params drawn (seed {SEED}) in "
+        f"{time.perf_counter() - t0:.1f}s, "
+        f"{sum(t.numel() for t in tree_leaves(params)) * 4 / 1e9:.2f} GB in float32")
+    gen = torch.Generator().manual_seed(SEED)
+    prompts = torch.randint(0, cfg.vocab, (d["batch"], d["seq_len"]), generator=gen,
+                            dtype=torch.int32).to(dev)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, cache = T.prefill(cfg, params, {"tokens": prompts}, d["max_len"])
+        chain = [logits]
+        toks = [_greedy(torch, logits)]
+        for _ in range(d["steps"] - 1):
+            logits, cache = T.decode_step(cfg, params, cache, toks[-1][:, None])
+            chain.append(logits)
+            toks.append(_greedy(torch, logits))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t_chain = time.perf_counter() - t0
+        del cache
+        seq = torch.cat([prompts] + [t[:, None] for t in toks[:-1]], dim=1)
+        full = T.forward(cfg, params, {"tokens": seq})
+        s0 = d["seq_len"] - 1
+        got = torch.cat(chain, dim=1)
+        want = full[:, s0:s0 + d["steps"]]
+        scale = max(1.0, float(want.abs().max()))
+        diff = float((got - want).abs().max())
+        require(bool(torch.isfinite(got).all()), f"{decoder}: non-finite float logits")
+        require(diff <= PTQ_CHAIN_RTOL * scale,
+                f"{decoder}: float prefill + decode chain vs forward max |diff| {diff} "
+                f"(max |logit| {scale})")
+        del full
+        log(f"  [ptq] {decoder} float: prefill {d['batch']}x{d['seq_len']} + "
+            f"{d['steps'] - 1} decode steps in {t_chain:.2f}s; the chain's logits vs the "
+            f"float forward over the same {seq.shape[1]} tokens: max |diff| {diff:.3g} "
+            f"(limit {PTQ_CHAIN_RTOL:g} x {scale:.3g})")
+
+        model = api.compile(cfg, backend="ita", seq_len=d["seq_len"], max_len=d["max_len"],
+                            use_cache=False)
+        t0 = time.perf_counter()
+        sess = model.session(d["batch"], params=params, device=None if dev.type == "cuda"
+                             else dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        require(sess.device == dev, f"session on {sess.device}, not {dev}")
+        t_bind = time.perf_counter() - t0
+        gemm = sum(n.kind == "gemm" and n.engine == "ita"
+                   for n in model.artifact.prefill.flat_nodes())
+        _counts_zero(wrappers)
+        q_logits = sess.prefill(prompts)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        # on the card: 7 int8_gemm launches a layer, the plan's ita GEMMs
+        _take(wrappers, launches, dev, dict(int8_gemm=7 * cfg.n_layers),
+              f"ptq {decoder} prefill")
+        ref = T.forward_w8a8(cfg, sess.qp, {"tokens": prompts})
+        _take(wrappers, launches, dev, {}, f"ptq {decoder} forward_w8a8")
+        require(torch.equal(q_logits, ref[:, -1:]),
+                f"{decoder}: the float-bound session's prefill != forward_w8a8's last row")
+        q_toks = [_greedy(torch, q_logits)]
+        for _ in range(d["steps"] - 1):
+            q_toks.append(_greedy(torch, sess.decode(q_toks[-1])))
+        _take(wrappers, launches, dev, {}, f"ptq {decoder} decode")
+        m = quantization_error(chain[0], q_logits)
+        agree = int(sum(int((a == b).sum()) for a, b in zip(toks, q_toks)))
+        first = int((toks[0] == q_toks[0]).sum())
+        log(f"  [ptq] {decoder} ita session bound from float params (quantized on the card "
+            f"in {t_bind:.1f}s): int8_gemm {gemm} launches a prefill; prefill logits equal "
+            f"forward_w8a8's last row bit for bit; vs the float prefill: cosine "
+            f"{m['cosine']:.6f}, rel_err {m['rel_err']:.6f}, argmax agreement "
+            f"{m['argmax_agreement']:.6f}; greedy tokens equal to the float chain's: "
+            f"{agree} of {d['steps'] * d['batch']} ({first} of {d['batch']} at the first step)")
+    del sess, params, chain
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"  [ptq] phase took {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# dryrun phase: python -m repro_torch.launch.dryrun --via-plan, in-process
+# ---------------------------------------------------------------------------
+
+#: (arch, backend, head_by_head, seq, gen) of each run_via_plan call, batch 8
+DRYRUN = [
+    ("mobilebert", "ita", False, None, 2),
+    ("mobilebert", "w8a8", True, None, 2),
+    ("olmo-1b", "ita", False, 128, 16),
+]
+
+
+def dryrun_phase(torch, card: str, dev, reduced_cfg: bool = False) -> dict[str, int]:
+    """``run_via_plan`` for each row of :data:`DRYRUN` at batch 8: rc 0
+    (the plan equals the model-level chain bit for bit), its record and
+    plan written under ``build/``."""
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.launch.dryrun import run_via_plan
+
+    wrappers = kernels.wrappers()
+    launches = dict.fromkeys(wrappers, 0)
+    (ROOT / "build").mkdir(exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="dryrun-", dir=ROOT / "build")
+    for arch, backend, hbh, seq, gen in DRYRUN:
+        _counts_zero(wrappers)
+        t0 = time.perf_counter()
+        rc = run_via_plan(arch, reduced_cfg=reduced_cfg, backend=backend, batch_size=BATCH,
+                          seq_len=seq, head_by_head=hbh, gen_steps=gen, out_dir=out_dir,
+                          use_cache=False, device=None if dev.type == "cuda" else dev,
+                          seed=SEED)
+        got = _take(wrappers, launches, dev, None, f"dryrun {arch}")
+        require(rc == 0, f"dryrun {arch} {backend}: run_via_plan returned {rc}")
+        per = ", ".join(f"{n} {c}" for n, c in got.items() if c) or "none"
+        log(f"  [dryrun] {arch} ({backend}{', head-by-head' if hbh else ''}): rc 0 in "
+            f"{time.perf_counter() - t0:.1f}s on {card}; launches {per}")
+    files = sorted(p.name for p in Path(out_dir).iterdir())
+    require(len(files) == 2 * len(DRYRUN) - 1, f"dryrun wrote {files}")
+    log(f"  [dryrun] records and plans in {out_dir}: {', '.join(files)}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1872,6 +2168,14 @@ def main() -> int:
           "interleaving checks, the sanitized engine at full width, 8 HTTP streams, and a "
           "seeded skipped copy-on-write refused before its launch")
     for name, n in sanitize_phase(torch, card, dev, engine_run).items():
+        launches[name] += n
+    phase("[ptq] float -> calibrate -> quantize -> the integer path: MobileBERT calibrated "
+          "on the card vs the CPU, OLMo-1B's float chain and its float-bound ita session")
+    for name, n in ptq_phase(torch, card, dev).items():
+        launches[name] += n
+    phase("[dryrun] python -m repro_torch.launch.dryrun --via-plan in-process: MobileBERT "
+          "(ita; head-by-head w8a8) and OLMo-1B (ita, 128 + 16 tokens), batch 8")
+    for name, n in dryrun_phase(torch, card, dev).items():
         launches[name] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -11,6 +11,10 @@
   bit-exact with it at equal ``block_k``.
 * :func:`attention_decode_i8` — the flash path against an int8 KV cache,
   masked per request past its valid rows (the decoder's cached attention).
+* :func:`attention_f32` / :func:`attention_f32_chunked` — the float
+  references (einsum and a float32 softmax, as the JAX package writes
+  them; not ``scaled_dot_product_attention``, whose backend picks its own
+  arithmetic).
 
 GQA repeats KV heads; 1/sqrt(d_head) and all scales fold into the logit
 requantization multiplier.
@@ -26,6 +30,8 @@ import torch
 from repro_torch.core import itamax as im
 from repro_torch.kernels.itamax import itamax
 from repro_torch.quant.qparams import imatmul, make_qparams, requantize
+
+NEG_MASK_I32 = -(1 << 20)
 
 
 class MhaQParams(NamedTuple):
@@ -145,3 +151,63 @@ def attention_decode_i8(
             kv_len = kv_len[:, None, None, None]
     return attention_flash_i8(q_q, k_cache, v_cache, p, causal=False, block_k=block_k,
                               kv_len=kv_len)
+
+
+# Float reference -------------------------------------------------------------
+
+
+def attention_f32_chunked(
+    q: torch.Tensor,  # [B, H, Sq, D]
+    k: torch.Tensor,  # [B, Hkv, Sk, D]
+    v: torch.Tensor,
+    causal: bool = False,
+    block_q: int = 1024,
+    logit_clip: float | None = None,
+) -> torch.Tensor:
+    """Float attention one block of ``block_q`` queries at a time (a full
+    softmax row per query): never holds the S x S logits at once."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    k = _repeat_kv(k, h // hkv)
+    v = _repeat_kv(v, h // hkv)
+    if sq % block_q:
+        return attention_f32(q, k, v, causal=causal, logit_clip=logit_clip)
+    scale = 1.0 / math.sqrt(d)
+    q_off = sk - sq
+    outs = []
+    for i0 in range(0, sq, block_q):
+        logits = torch.einsum("bhqd,bhkd->bhqk", q[:, :, i0:i0 + block_q], k) * scale
+        if logit_clip is not None:
+            logits = torch.clamp(logits, -logit_clip, logit_clip)
+        if causal:
+            keep = _causal_mask(block_q, sk, i0 + q_off, q.device)
+            logits = torch.where(keep, logits, torch.finfo(logits.dtype).min)
+        a = torch.softmax(logits.to(torch.float32), dim=-1).to(q.dtype)
+        outs.append(torch.einsum("bhqk,bhkd->bhqd", a, v))
+    return torch.cat(outs, dim=2)
+
+
+def attention_f32(
+    q: torch.Tensor,  # [B, H, Sq, D]
+    k: torch.Tensor,  # [B, Hkv, Sk, D]
+    v: torch.Tensor,
+    causal: bool = False,
+    mask: torch.Tensor | None = None,
+    logit_clip: float | None = None,
+) -> torch.Tensor:
+    """Standard float attention; ``logit_clip`` mimics the int8 logit range
+    (+- 127 * ITAMAX_LOGIT_SCALE) for QAT parity with the integer path."""
+    h, hkv = q.shape[1], k.shape[1]
+    k = _repeat_kv(k, h // hkv)
+    v = _repeat_kv(v, h // hkv)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    if logit_clip is not None:
+        logits = torch.clamp(logits, -logit_clip, logit_clip)
+    neg = torch.finfo(logits.dtype).min
+    if causal:
+        sq, sk = q.shape[2], k.shape[2]
+        logits = torch.where(_causal_mask(sq, sk, sk - sq, q.device), logits, neg)
+    if mask is not None:
+        logits = torch.where(mask, logits, neg)
+    a = torch.softmax(logits.to(torch.float32), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", a, v)

@@ -6,7 +6,9 @@
 
 evaluated in int32 on the int8-requantized pre-activation.  ``igelu_int``
 returns the raw int32 polynomial output; its scale is
-``IGeluParams.out_scale``.
+``IGeluParams.out_scale``.  ``igelu_i8`` is the fused int8-in / int8-out
+op (the plain version of the ``igelu`` kernel); ``gelu_f32`` (erf form)
+and ``igelu_f32`` are the float references.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.quant.qparams import i32
+from repro_torch.quant.qparams import i32, make_qparams, requantize
 
 ERF_A = -0.2888
 ERF_B = -1.769
@@ -57,3 +59,31 @@ def igelu_int(q: torch.Tensor, p: IGeluParams) -> torch.Tensor:
     q_l = (q_abs + p.q_b) * (q_abs + p.q_b) + p.q_c
     q_erf = sgn * q_l
     return -(q * (q_erf + p.q_1))
+
+
+def igelu_i8(q: torch.Tensor, in_scale: float, out_scale: float) -> torch.Tensor:
+    """Fused int8 -> int8 i-GeLU (requantization folded)."""
+    p = make_igelu_params(in_scale)
+    qp = make_qparams(p.out_scale, 1.0, out_scale)
+    return requantize(igelu_int(q, p), qp.mult, qp.shift)
+
+
+def gelu_f32(x: torch.Tensor) -> torch.Tensor:
+    """Exact float GeLU (erf form) — accuracy reference.  ``torch.erf`` and
+    XLA's erf differ in the last bits, so the two packages agree within a
+    float32 tolerance, not bit for bit."""
+    return 0.5 * x * (1.0 + torch.erf(x / math.sqrt(2.0)))
+
+
+def igelu_f32(x: torch.Tensor) -> torch.Tensor:
+    """Float evaluation of the I-BERT polynomial (approximation target)."""
+    s = torch.sign(x)
+    xa = torch.clamp(torch.abs(x) / math.sqrt(2.0), max=-ERF_B)
+    poly = ERF_A * (xa + ERF_B) ** 2 + ERF_C
+    return 0.5 * x * (1.0 + s * poly)
+
+
+def irelu_i8(q: torch.Tensor, in_scale: float, out_scale: float) -> torch.Tensor:
+    """Integer ReLU with requantization (ITA activation unit mode 1)."""
+    qp = make_qparams(in_scale, 1.0, out_scale)
+    return requantize(torch.clamp(i32(q), min=0), qp.mult, qp.shift)

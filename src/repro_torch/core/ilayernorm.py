@@ -70,3 +70,25 @@ def irmsnorm_i8(x_i8, gamma_q, s_gamma: float, out_scale: float) -> torch.Tensor
     acc = norm_q * i32(gamma_q, norm_q.device)
     qp = make_qparams(NORM_SCALE, s_gamma, out_scale)
     return requantize(acc, qp.mult, qp.shift)
+
+
+# Float references ----------------------------------------------------------
+
+
+def layernorm_f32(x: torch.Tensor, gamma=None, beta=None, eps: float = 1e-5) -> torch.Tensor:
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    if gamma is not None:
+        y = y * gamma
+    if beta is not None:
+        y = y + beta
+    return y
+
+
+def rmsnorm_f32(x: torch.Tensor, gamma=None, eps: float = 1e-5) -> torch.Tensor:
+    ms = (x * x).mean(dim=-1, keepdim=True)
+    y = x * torch.rsqrt(ms + eps)
+    if gamma is not None:
+        y = y * gamma
+    return y

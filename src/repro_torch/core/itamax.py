@@ -11,6 +11,9 @@ The logit grid is fixed so that ``log2(e) * S_logit = 2^-B`` with
   in int32, a max update renormalizes with a 10-bit LUT, a guard rescales
   ``d`` and ``acc`` by 2^-8 when ``d`` exceeds 2^21, and one exact floor
   division per row ends it.  The result depends on the block partition.
+* :func:`flash_itamax_reference` — the blocked form over a whole row, one
+  block at a time; :func:`itamax_rowwise_f32` — the float softmax that
+  ITAMax approximates.
 """
 
 from __future__ import annotations
@@ -107,6 +110,13 @@ def itamax_rowwise(
     return torch.clamp(a, 0, 127).to(torch.int8)
 
 
+def itamax_rowwise_f32(logits_f32: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Float reference of what ITAMax approximates (plain softmax)."""
+    x = logits_f32 - logits_f32.amax(dim=axis, keepdim=True)
+    e = torch.exp(x)
+    return e / e.sum(dim=axis, keepdim=True)
+
+
 class FlashItamaxState(NamedTuple):
     """Carry for softmax rows processed block by block (all int32).
 
@@ -197,3 +207,21 @@ def flash_finalize_q77(state: FlashItamaxState) -> torch.Tensor:
     rem = state.acc - r * d
     frac = floor_div((rem << A_BITS) + (d >> 1), d)
     return r * (1 << A_BITS) + frac
+
+
+def flash_itamax_reference(
+    logits: torch.Tensor,  # int8 [..., n]
+    v: torch.Tensor,  # int8 [..., n, out_dim]
+    block: int,
+    mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Blocked single-pass oracle: Q7.7 int32 [..., out_dim], bit-exact with
+    the fused attention kernel run with the same block size."""
+    n = logits.shape[-1]
+    if n % block:
+        raise ValueError(f"row length {n} is not a multiple of block {block}")
+    state = flash_init(tuple(logits.shape[:-1]), v.shape[-1], device=logits.device)
+    for i in range(0, n, block):
+        mb = None if mask is None else mask[..., i:i + block]
+        state = flash_block_update(state, logits[..., i:i + block], v[..., i:i + block, :], mb)
+    return flash_finalize_q77(state)

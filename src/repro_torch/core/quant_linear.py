@@ -3,7 +3,7 @@
 int8 x int8 -> int32 accumulate, add the int32 bias, fixed-point
 requantize, optional Identity / ReLU / i-GeLU epilogue.  This is the plain
 (``w8a8``) form; ``repro_torch.kernels.int8_gemm`` is the CUDA kernel of
-the same function.
+the same function.  ``linear_f32`` is the float reference.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.igelu import IGeluParams, igelu_int, make_igelu_params
+from repro_torch.core.igelu import IGeluParams, gelu_f32, igelu_int, make_igelu_params
 from repro_torch.quant.qparams import (
     i32,
     imatmul,
@@ -94,3 +94,17 @@ def qlinear_i8(
     if bias_q is not None:
         acc = acc + i32(bias_q)
     return qlinear_epilogue(acc, p)
+
+
+# Float reference -------------------------------------------------------------
+
+
+def linear_f32(x: torch.Tensor, w: torch.Tensor, bias=None, act: int = ACT_IDENTITY):
+    y = x @ w
+    if bias is not None:
+        y = y + bias
+    if act == ACT_RELU:
+        y = torch.clamp(y, min=0)
+    elif act == ACT_GELU:
+        y = gelu_f32(y)
+    return y

@@ -511,6 +511,9 @@ class InferenceSession:
     device once.  The pools, the copy-on-write copies and the scatter of
     new rows work in place on the device tensors: no step moves a pool.
 
+    ``qp`` holds the quantized params the session was bound from (where
+    ``CompiledModel.bind`` left them), for a model-level check of the plan.
+
     **Thread affinity**: the KV state, the allocator and the depths have
     no locking, so a session belongs to one thread at a time.  The first
     mutating call binds it to the calling thread; mutating from another
@@ -539,7 +542,7 @@ class InferenceSession:
         self.backend = model.backend
         self.batch_size = batch_size
         self.table = table
-        weights, _ = model.bind(params=params, qp=qp, seed=seed)
+        weights, self.qp = model.bind(params=params, qp=qp, seed=seed)
         self.weights = {k: v.to(self.device) for k, v in weights.items()}
         if model.kind == "decoder":
             pair = self._pair = model.artifact

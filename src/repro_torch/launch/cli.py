@@ -1,14 +1,20 @@
-"""Shared CLI plumbing of the port's serving entry points.
+"""Shared CLI plumbing of the port's plan-backed entry points.
 
-``add_engine_args`` / ``add_serving_args`` install the argument blocks of
-the request-level engine (``repro_torch.deploy.engine.Engine``) and of its
-admission policy, so ``python -m repro_torch.launch.serve`` and
-``python -m repro_torch.deploy.serving`` present one surface, the JAX
-package's; ``add_plan_args`` installs the port's compile and bind block
-that both share, and ``add_sanitize_args`` / ``apply_sanitize_args`` the
-``--sanitize`` switch.  ``synthesize_prompts`` draws the engine's traffic
-from a seeded ``numpy.random.Generator``; ``http_generate`` /
-``http_get_json`` are stdlib clients of the serving frontend.
+``add_plan_args`` installs the compile-and-bind block that
+``python -m repro_torch.launch.serve``, ``python -m
+repro_torch.deploy.serving`` and ``python -m repro_torch.launch.dryrun``
+share: ``--via-plan`` where the entry point has a model-level path beside
+the plan (dryrun), ``--backend`` validated and normalised by
+:func:`parse_backend` against the dispatch vocabulary
+(:func:`plan_backend_names`), and the port's own options (the paged KV
+region, the seed, ``--device``).  ``add_engine_args`` /
+``add_serving_args`` install the argument blocks of the request-level
+engine (``repro_torch.deploy.engine.Engine``) and of its admission policy,
+so the serving entry points present one surface, the JAX package's, and
+``add_sanitize_args`` / ``apply_sanitize_args`` the ``--sanitize``
+switch.  ``synthesize_prompts`` draws the engine's traffic from a seeded
+``numpy.random.Generator``; ``http_generate`` / ``http_get_json`` are
+stdlib clients of the serving frontend.
 """
 
 from __future__ import annotations
@@ -19,14 +25,44 @@ import urllib.request
 
 import numpy as np
 
+from repro_torch.core.heterogeneous import Backend, as_backend
 
-def add_plan_args(ap: argparse.ArgumentParser) -> None:
-    """Install the shared compile-and-bind block: ``--backend``, the paged
-    KV region (``--kv-block-size`` / ``--kv-blocks``), the plan cache,
-    the seed of the random weights and ``--device`` (the card unless
-    ``cpu``).  The JAX package's block has ``--via-plan`` and no device:
-    every port entry point serves from the plan."""
-    ap.add_argument("--backend", default="ita", choices=("ita", "w8a8"))
+
+def plan_backend_names() -> tuple[str, ...]:
+    """Backend names the plan executor accepts, in enum order."""
+    return tuple(b.value for b in Backend)
+
+
+def parse_backend(name: str) -> Backend:
+    """Validate and normalise a CLI backend name (argparse ``type=``)."""
+    if name.lower() == "float":
+        raise argparse.ArgumentTypeError(
+            f"backend {name!r} is model-path only; plan backends: "
+            f"{', '.join(plan_backend_names())}")
+    try:
+        return as_backend(name)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e)) from None
+
+
+def add_plan_args(ap: argparse.ArgumentParser, *, via_plan_help: str | None = None,
+                  backend_default: Backend = Backend.W8A8) -> None:
+    """Install the shared compile-and-bind block.
+
+    ``--via-plan`` (only where ``via_plan_help`` is given: the serving
+    entry points always run the plan), ``--backend`` parsed straight to a
+    :class:`Backend` member (``args.backend.value`` is the name; the
+    reference's default ``w8a8``, the serving entry points pass ``ita``),
+    the paged KV region (``--kv-block-size`` / ``--kv-blocks``), the plan
+    cache, the seed of the random weights and ``--device`` (the card
+    unless ``cpu``)."""
+    if via_plan_help is not None:
+        ap.add_argument("--via-plan", action="store_true", help=via_plan_help)
+    ap.add_argument(
+        "--backend", type=parse_backend, default=backend_default,
+        metavar="|".join(plan_backend_names()),
+        help="plan-executor backend: the paper-faithful integer arithmetic (w8a8) or "
+             "the CUDA kernels (ita)")
     ap.add_argument("--kv-block-size", type=int, default=None,
                     help="decoder: a paged KV region of blocks of this many rows")
     ap.add_argument("--kv-blocks", type=int, default=None,

@@ -49,6 +49,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.configs import get_config, reduced
+from repro_torch.core.heterogeneous import Backend
 from repro_torch.deploy import api
 from repro_torch.deploy.paging import blocks_for_rows
 from repro_torch.launch.cli import (
@@ -356,7 +357,7 @@ def main(argv=None):
     ap.add_argument("--extra-prompt", type=int, default=2,
                     help="decoder: stagger prompt lengths up to this many tokens past "
                          "--prompt-len")
-    add_plan_args(ap)
+    add_plan_args(ap, backend_default=Backend.ITA)
     add_engine_args(ap)
     add_serving_args(ap)
     add_sanitize_args(ap)

@@ -1,7 +1,9 @@
-"""Encoder-only models — the paper's three workloads, integer path (torch port).
+"""Encoder-only models — the paper's three workloads, float and integer paths (torch port).
 
 MobileBERT (tokens), DINOv2-S (patch embeddings) and the Whisper-tiny
-encoder (frame embeddings).  ``forward_w8a8`` runs either backend, on
+encoder (frame embeddings).  ``forward`` / ``loss_fn`` are the float
+model (optionally with QAT fake-quant), which PTQ calibrates
+(``quant.ptq``).  ``forward_w8a8`` runs either backend, on
 the card or on the CPU: ``"w8a8"`` is the plain integer arithmetic with
 rowwise ITAMax (exact integer products, ``quant.qparams.imatmul``, and
 the ``itamax`` kernel on the card), ``"ita"`` sends the GEMMs through the
@@ -26,6 +28,7 @@ from repro_torch.core.quant_linear import ACT_GELU
 from repro_torch.kernels.int8_gemm import int8_gemm
 from repro_torch.kernels.ita_attention import ita_attention
 from repro_torch.models import layers as L
+from repro_torch.models.transformer import layer_fwd
 from repro_torch.quant.qparams import i32, imatmul, make_qparams, requantize
 
 _S_GAMMA = 1.0 / 64.0
@@ -81,6 +84,40 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32, device=None
         table = torch.randn((cfg.vocab, cfg.d_model), generator=gen, dtype=dtype) * 0.02
         params["embed"] = {"table": table.to(device)}
     return params
+
+
+def embed(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
+    if "tokens" in batch and cfg.vocab:
+        x = params["embed"]["table"][batch["tokens"].long()]
+    elif "patches" in batch:
+        x = batch["patches"]
+    else:
+        x = batch["frames"]
+    return x + params["pos"][: x.shape[1]].to(x.dtype)
+
+
+def forward(cfg: ArchConfig, params: dict, batch: dict, *, qat: bool = False) -> torch.Tensor:
+    """Float forward: MLM logits [B, S, vocab] (tokens) or hidden states
+    [B, S, D]."""
+    x = embed(cfg, params, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for lp in params["layers"]:
+        x, _ = layer_fwd(cfg, lp, x, positions, qat=qat, causal=False)
+    x = L.norm_apply(cfg.norm, params["final_norm"], x)
+    if cfg.vocab and "tokens" in batch:
+        return x @ params["embed"]["table"].T  # tied MLM head
+    return x
+
+
+def loss_fn(cfg: ArchConfig, params: dict, batch: dict, **kw) -> torch.Tensor:
+    """MLM cross-entropy (tokens), else the mean squared error against
+    ``batch["targets"]`` (0 when absent) for patch / frame encoders."""
+    out = forward(cfg, params, batch, **kw)
+    if cfg.vocab and "tokens" in batch:
+        logp = torch.log_softmax(out.to(torch.float32), dim=-1)
+        nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
+        return nll.mean()
+    return torch.mean((out - batch.get("targets", 0.0)) ** 2)
 
 
 def _q_i8(x: torch.Tensor, scale: float) -> torch.Tensor:

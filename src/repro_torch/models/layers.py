@@ -1,9 +1,11 @@
-"""Shared model layers of the port: float init and the integer (w8a8) helpers.
+"""Shared model layers of the port: the float layers and the integer (w8a8) helpers.
 
-Activations are int8 tensors threaded between ops, with static python
-float scales carried by a :class:`QuantConfig`.  Engine mapping (the
-paper's heterogeneous split): the accelerator runs qlinear (GEMM + act)
-and the quantized attention; the cluster runs norms, residual adds, the
+Float layers run the float models (optionally with QAT fake-quant) and
+serve as accuracy references.  Integer activations are int8 tensors
+threaded between ops, with static python float scales carried by a
+:class:`QuantConfig` (the PTQ product).  Engine mapping (the paper's
+heterogeneous split): the accelerator runs qlinear (GEMM + act) and the
+quantized attention; the cluster runs norms, residual adds, the
 classifier, and the decoder's integer RoPE and SiLU.
 """
 
@@ -18,13 +20,20 @@ import torch
 
 from repro_torch.core import ilayernorm as iln
 from repro_torch.core import itamax as im
+from repro_torch.core.igelu import gelu_f32
 from repro_torch.core.quant_linear import (
     ACT_IDENTITY,
     QLinearParams,
     make_qlinear_params,
     qlinear_i8,
 )
-from repro_torch.quant.qparams import i32, make_qparams, requantize, requantize_wide
+from repro_torch.quant.qparams import (
+    i32,
+    make_qparams,
+    quantize_weight_per_tensor,
+    requantize,
+    requantize_wide,
+)
 
 # ---------------------------------------------------------------------------
 # Quantization configuration (static scales)
@@ -33,11 +42,25 @@ from repro_torch.quant.qparams import i32, make_qparams, requantize, requantize_
 
 @dataclass(frozen=True)
 class QuantConfig:
-    """Static per-site activation scales for the integer path."""
+    """Static per-site activation scales for the integer path.
 
-    s_act: float = 0.05
-    s_res: float = 0.08
-    s_w: float = 0.01
+    Uniform defaults serve shape-only runs (one set of multipliers shared
+    by all layers); PTQ (``quant.ptq.calibrate_encoder``) sets calibrated
+    values, and per-site ones go in ``overrides``.
+    """
+
+    s_act: float = 0.05  # generic activation grid
+    s_res: float = 0.08  # residual stream grid
+    s_w: float = 0.01  # weight grid
+    overrides: tuple = ()  # ((site_name, scale), ...) — kept hashable
+
+    def site(self, name: str, default: float | None = None) -> float:
+        """The scale of site ``name``: its override, else ``default``,
+        else ``s_act``."""
+        for k, v in self.overrides:
+            if k == name:
+                return v
+        return default if default is not None else self.s_act
 
 
 # ---------------------------------------------------------------------------
@@ -54,6 +77,13 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int, bias: bool,
     return p
 
 
+def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
 def init_norm(kind: str, d: int, dtype=torch.float32, device=None) -> dict:
     if kind == "np_layernorm":
         return {}
@@ -61,6 +91,52 @@ def init_norm(kind: str, d: int, dtype=torch.float32, device=None) -> dict:
         return {"g": torch.ones((d,), dtype=dtype, device=device)}
     return {"g": torch.ones((d,), dtype=dtype, device=device),
             "b": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def norm_apply(kind: str, p: dict, x: torch.Tensor) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return iln.rmsnorm_f32(x, p["g"])
+    if kind == "np_layernorm":
+        return iln.layernorm_f32(x)
+    return iln.layernorm_f32(x, p["g"], p["b"])
+
+
+def rope_cos_sin(positions, head_dim: int, theta: float, dtype=torch.float32, device=None):
+    """Float ``cos``/``sin`` [..., head_dim // 2] of ``positions``, computed
+    on ``device`` as the JAX package does: ``theta ** (-arange / half)`` and
+    the angles in float32 (the float path's tables; the integer path's
+    Q0.7 tables come from :func:`_rope_cos_sin_host`)."""
+    half = head_dim // 2
+    freqs = float(theta) ** (-torch.arange(0, half, dtype=torch.float32, device=device) / half)
+    ang = torch.as_tensor(positions, device=device).to(torch.float32)[..., None] * freqs
+    return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x [B, H, S, D]; cos/sin [S, D/2] (or broadcastable)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[None, None] if cos.dim() == 2 else cos
+    s = sin[None, None] if sin.dim() == 2 else sin
+    return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def mask_padded_logits(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """-1e9 on the vocab-padding classes before softmax / cross-entropy."""
+    if logits.shape[-1] == vocab:
+        return logits
+    ids = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where(ids < vocab, logits, torch.full_like(logits, -1e9))
+
+
+def mlp_forward(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "swiglu":
+        return (silu(linear(p["gate"], x)) * linear(p["up"], x)) @ p["down"]["w"]
+    return gelu_f32(linear(p["up"], x)) @ p["down"]["w"]
 
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
@@ -120,8 +196,9 @@ def make_iadd_params(s_a: float, s_b: float, s_out: float):
 _ROPE_BITS = 7  # Q0.7 trig tables
 
 
-def rope_cos_sin(positions, head_dim: int, theta: float):
-    """float32 ``cos``/``sin`` [..., head_dim // 2] of ``positions``, on the CPU.
+def _rope_cos_sin_host(positions, head_dim: int, theta: float):
+    """float32 ``cos``/``sin`` [..., head_dim // 2] of ``positions``, on the
+    CPU, for the integer path's Q0.7 tables.
 
     The JAX package computes ``theta ** (-arange(half) / half)`` in float32;
     torch's float32 power differs from XLA's in the last bit of a few
@@ -143,7 +220,7 @@ def rope_cos_sin(positions, head_dim: int, theta: float):
 def _rope_table(n: int, head_dim: int, theta: float, device: torch.device):
     """Q0.7 ``cos``/``sin`` tables of positions ``[0, n)``, int32 [n, half],
     built on the host and moved to ``device`` once per key."""
-    cos, sin = rope_cos_sin(np.arange(n), head_dim, theta)
+    cos, sin = _rope_cos_sin_host(np.arange(n), head_dim, theta)
     scale = 1 << _ROPE_BITS
     c_q = torch.clamp(torch.round(cos * scale), -127, 127).to(torch.int32)
     s_q = torch.clamp(torch.round(sin * scale), -127, 127).to(torch.int32)
@@ -209,6 +286,10 @@ def isilu_i8(x_q: torch.Tensor, s_in: float, s_out: float) -> torch.Tensor:
 _F32_EXACT_K = (1 << 24) // (128 * 127)
 
 
+def silu_i8_ref_f32(x: torch.Tensor) -> torch.Tensor:
+    return silu(x)
+
+
 def classifier_f32(h_q: torch.Tensor, table_q: torch.Tensor, scale: float) -> torch.Tensor:
     """Tied MLM head: ``float32(h_q @ table_q.T) * scale``, exact on any device.
 
@@ -247,3 +328,13 @@ class QLinearSite:
 
 def qlinear(pq: dict, x_q: torch.Tensor, site: QLinearSite) -> torch.Tensor:
     return qlinear_i8(x_q, pq["w_q"], pq.get("b_q"), site.params())
+
+
+def quantize_linear_params(p: dict, s_in: float) -> tuple[dict, float]:
+    """Float linear params -> int8 weights (+ int32 bias), per-tensor scale."""
+    w_q, s_w = quantize_weight_per_tensor(p["w"])
+    s_w = float(s_w)
+    out = {"w_q": w_q}
+    if "b" in p:
+        out["b_q"] = torch.round(p["b"] / (s_in * s_w)).to(torch.int32)
+    return out, s_w

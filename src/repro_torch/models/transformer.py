@@ -1,28 +1,41 @@
-"""Dense decoder-only transformer LM (GQA), integer (w8a8) path — torch port.
+"""Dense decoder-only transformer LM (GQA), float and integer (w8a8) paths — torch port.
 
-Port of the w8a8 half of the JAX package's ``models/transformer.py``:
-int8 embedding table, integer norms, int8 QKV/O/MLP products, flash
-attention with streaming ITAMax, integer RoPE, SiLU and residual adds,
-and float logits only at the LM head.  Every function here runs the
-plain integer arithmetic (exact integer products on any device,
+The float half (``forward`` / ``loss_fn`` with optional QAT fake-quant,
+``prefill`` / ``decode_step`` over a float KV cache) is the accuracy
+reference and the calibration model.  The integer half: int8 embedding
+table, integer norms, int8 QKV/O/MLP products, flash attention with
+streaming ITAMax, integer RoPE, SiLU and residual adds, and float logits
+only at the LM head.  Every integer function here runs the plain integer
+arithmetic (exact integer products on any device,
 ``quant.qparams.imatmul``); the deploy flow's plans equal it on both
 backends.
 
 Parameters are plain dicts; ``params["layers"]`` is a list with one dict
-per layer.  The KV cache is ``{"k": [L, B, Hkv, max_len, D] int8, "v":
-..., "len": int32}``, with ``len`` a host (CPU) tensor: RoPE angles and
-cache rows are chosen on the host.  The functions here are pure: a
-decode step returns a new cache and leaves its argument as it was.
+per layer (the JAX package stacks them and scans).  A KV cache is
+``{"k": [L, B, Hkv, max_len, D], "v": ..., "len": int32}`` (int8 on the
+integer path, float on the float one), with ``len`` a host (CPU) tensor:
+RoPE angles and cache rows are chosen on the host.  The functions here are
+pure: a decode step returns a new cache and leaves its argument as it was.
+Mixture-of-experts layers are not ported: they raise.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import ilayernorm as iln
-from repro_torch.core.attention import MhaQParams, attention_flash_i8
+from repro_torch.core.attention import (
+    MhaQParams,
+    attention_f32,
+    attention_f32_chunked,
+    attention_flash_i8,
+)
+from repro_torch.core.itamax import ITAMAX_LOGIT_SCALE
 from repro_torch.models import layers as L
+from repro_torch.quant.fake_quant import fake_quant_weight
 from repro_torch.quant.qparams import i32, imatmul, make_qparams, requantize
 
 _S_GAMMA = 1.0 / 64.0  # shape-only norm gain grid (g_q=64 -> gamma=1.0)
@@ -71,6 +84,171 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32, device=None
         params["lm_head"] = L.init_linear(gen, cfg.d_model, cfg.vocab_padded, False, dtype,
                                           device)
     return params
+
+
+# ---------------------------------------------------------------------------
+# Float forward / prefill / decode
+# ---------------------------------------------------------------------------
+
+
+def _split_heads(qkv: torch.Tensor, cfg: ArchConfig):
+    b, s, _ = qkv.shape
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = torch.split(qkv, [h * d, hkv * d, hkv * d], dim=-1)
+    q = q.reshape(b, s, h, d).permute(0, 2, 1, 3)
+    k = k.reshape(b, s, hkv, d).permute(0, 2, 1, 3)
+    v = v.reshape(b, s, hkv, d).permute(0, 2, 1, 3)
+    return q, k, v
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, s, d = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b, s, h * d)
+
+
+_CHUNKED_ATTN_MIN_SEQ = 2048  # float path: Q-blocked attention from here on
+
+
+def _rope(cfg: ArchConfig, q, k, positions):
+    if not cfg.rope:
+        return q, k
+    cos, sin = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, q.dtype, q.device)
+    return L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
+
+
+def attn_block(cfg: ArchConfig, lp: dict, x: torch.Tensor, positions, *, qat: bool = False,
+               causal: bool = True) -> torch.Tensor:
+    """Pre-norm attention with its residual.  ``qat`` puts the projections
+    on the int8 weight grid (STE) and clips the logits to the ITAMax range."""
+    h = L.norm_apply(cfg.norm, lp["norm1"], x)
+    wqkv, wo = lp["attn"]["wqkv"], lp["attn"]["wo"]
+    if qat:
+        wqkv = {**wqkv, "w": fake_quant_weight(wqkv["w"])}
+        wo = {**wo, "w": fake_quant_weight(wo["w"])}
+    q, k, v = _split_heads(L.linear(wqkv, h), cfg)
+    q, k = _rope(cfg, q, k, positions)
+    clip = 127 * ITAMAX_LOGIT_SCALE if qat else None
+    if q.shape[2] >= _CHUNKED_ATTN_MIN_SEQ:
+        out = attention_f32_chunked(q, k, v, causal=causal, logit_clip=clip)
+    else:
+        out = attention_f32(q, k, v, causal=causal, logit_clip=clip)
+    return x + L.linear(wo, _merge_heads(out))
+
+
+def mlp_block(cfg: ArchConfig, lp: dict, x: torch.Tensor):
+    """Returns (x, aux_loss): aux is the MoE load-balance term, 0 here."""
+    _dense_only(cfg)
+    h = L.norm_apply(cfg.norm, lp["norm2"], x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + L.mlp_forward(lp["mlp"], h, cfg.mlp), aux
+
+
+def layer_fwd(cfg: ArchConfig, lp: dict, x: torch.Tensor, positions, *, qat: bool = False,
+              causal: bool = True):
+    x = attn_block(cfg, lp, x, positions, qat=qat, causal=causal)
+    return mlp_block(cfg, lp, x)
+
+
+def embed_input(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
+    return params["embed"]["table"][batch["tokens"].long()]
+
+
+def lm_head(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    x = L.norm_apply(cfg.norm, params["final_norm"], x)
+    if cfg.tie_embeddings:
+        return x @ params["embed"]["table"].T
+    return x @ params["lm_head"]["w"]
+
+
+def forward(cfg: ArchConfig, params: dict, batch: dict, *, qat: bool = False,
+            return_aux: bool = False, remat: bool = False):
+    """Causal LM forward: logits [B, S, vocab_padded] (and the MoE aux).
+    ``remat`` recomputes each layer's activations in the backward pass."""
+    x = embed_input(cfg, params, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def body(x, lp):
+        return layer_fwd(cfg, lp, x, positions, qat=qat)
+
+    for lp in params["layers"]:
+        if remat:
+            x, a = checkpoint(body, x, lp, use_reentrant=False)
+        else:
+            x, a = body(x, lp)
+        aux = aux + a
+    logits = lm_head(cfg, params, x)
+    return (logits, aux) if return_aux else logits
+
+
+MOE_AUX_WEIGHT = 0.01
+
+
+def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *, qat: bool = False,
+            remat: bool = False) -> torch.Tensor:
+    logits, aux = forward(cfg, params, batch, qat=qat, return_aux=True, remat=remat)
+    labels = batch["labels"].long()
+    logits = L.mask_padded_logits(logits, cfg.vocab)
+    logp = F.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    return nll.mean() + MOE_AUX_WEIGHT * aux
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.float32,
+               device=None) -> dict:
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "len": torch.zeros((), dtype=torch.int32),
+    }
+
+
+def prefill(cfg: ArchConfig, params: dict, batch: dict, max_len: int):
+    """Float prefill: the causal forward of the prompt plus cache capture.
+    Returns the last-token logits [B, 1, vocab_padded] and the cache."""
+    x = embed_input(cfg, params, batch)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)
+    cache = init_cache(cfg, b, max_len, x.dtype, x.device)
+    for l, lp in enumerate(params["layers"]):
+        h = L.norm_apply(cfg.norm, lp["norm1"], x)
+        q, k, v = _split_heads(L.linear(lp["attn"]["wqkv"], h), cfg)
+        q, k = _rope(cfg, q, k, positions)
+        cache["k"][l, :, :, :s] = k
+        cache["v"][l, :, :, :s] = v
+        out = attention_f32(q, k, v, causal=True)
+        x = x + L.linear(lp["attn"]["wo"], _merge_heads(out))
+        x, _ = mlp_block(cfg, lp, x)
+    cache["len"] = torch.tensor(s, dtype=torch.int32)
+    return lm_head(cfg, params, x[:, -1:]), cache
+
+
+def decode_step(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor):
+    """One-token float decode (every request at depth ``cache["len"]``).
+    token [B, 1] int.  Returns the logits [B, 1, vocab_padded] and a new
+    cache."""
+    x = params["embed"]["table"][token.long()]
+    pos = int(cache["len"])
+    smax = cache["k"].shape[3]
+    mask = (torch.arange(smax, device=x.device) <= pos)[None, None, None, :]
+    new_k, new_v = cache["k"].clone(), cache["v"].clone()
+    for l, lp in enumerate(params["layers"]):
+        h = L.norm_apply(cfg.norm, lp["norm1"], x)
+        q, k, v = _split_heads(L.linear(lp["attn"]["wqkv"], h), cfg)
+        q, k = _rope(cfg, q, k, [pos])
+        new_k[l, :, :, pos:pos + 1] = k
+        new_v[l, :, :, pos:pos + 1] = v
+        out = attention_f32(q, new_k[l], new_v[l], mask=mask)
+        x = x + L.linear(lp["attn"]["wo"], _merge_heads(out))
+        x, _ = mlp_block(cfg, lp, x)
+    new_cache = {"k": new_k, "v": new_v, "len": torch.tensor(pos + 1, dtype=torch.int32)}
+    return lm_head(cfg, params, x), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Integer parameters
+# ---------------------------------------------------------------------------
 
 
 def _qnorm(cfg: ArchConfig) -> dict:
@@ -166,21 +344,6 @@ def quantize_params(cfg: ArchConfig, params: dict, q: L.QuantConfig = L.QuantCon
 # ---------------------------------------------------------------------------
 
 
-def _split_heads(qkv: torch.Tensor, cfg: ArchConfig):
-    b, s, _ = qkv.shape
-    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k, v = torch.split(qkv, [h * d, hkv * d, hkv * d], dim=-1)
-    q = q.reshape(b, s, h, d).permute(0, 2, 1, 3)
-    k = k.reshape(b, s, hkv, d).permute(0, 2, 1, 3)
-    v = v.reshape(b, s, hkv, d).permute(0, 2, 1, 3)
-    return q, k, v
-
-
-def _merge_heads(x: torch.Tensor) -> torch.Tensor:
-    b, h, s, d = x.shape
-    return x.permute(0, 2, 1, 3).reshape(b, s, h * d)
-
-
 def _sites(cfg: ArchConfig, q: L.QuantConfig) -> dict:
     """Static quantized-site table shared by all layers."""
     a, r, w = q.s_act, q.s_res, q.s_w
@@ -263,6 +426,17 @@ def lm_head_w8a8(cfg: ArchConfig, qp: dict, x_q: torch.Tensor, q: L.QuantConfig)
     h_q = L.norm_apply_i8(cfg.norm, qp["final_norm"], x_q, _S_GAMMA, q.s_act)
     w_q = qp["embed"]["table_q"].T if cfg.tie_embeddings else qp["lm_head"]["w_q"]
     return imatmul(h_q, w_q).to(torch.float32) * (q.s_act * q.s_w)
+
+
+def forward_w8a8(cfg: ArchConfig, qp: dict, batch: dict,
+                 q: L.QuantConfig = L.QuantConfig()) -> torch.Tensor:
+    """Integer causal forward of the whole sequence: dequantized logits
+    [B, S, vocab_padded] (the layers of ``prefill_w8a8`` with no cache)."""
+    x_q = embed_input_w8a8(cfg, qp, batch)
+    positions = torch.arange(x_q.shape[1])
+    for lp in qp["layers"]:
+        x_q = qlayer_fwd(cfg, lp, x_q, positions, q)
+    return lm_head_w8a8(cfg, qp, x_q, q)
 
 
 def init_cache_w8a8(cfg: ArchConfig, batch: int, max_len: int, device=None) -> dict:

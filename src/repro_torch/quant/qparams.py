@@ -24,6 +24,8 @@ import torch
 
 INT8_MIN = -128
 INT8_MAX = 127
+# Weights use [-127, 127] so symmetric negation cannot overflow.
+WEIGHT_QMAX = 127
 
 MULT_BITS = 15
 MULT_MAX = (1 << MULT_BITS) - 1  # 32767
@@ -233,3 +235,60 @@ def requantize_wide(acc, mult, shift, zero_point=0, out_bits=16) -> torch.Tensor
     out = _requant_core(acc, mult, shift)
     lim = 1 << (out_bits - 1)
     return (out + zero_point).clamp(-lim, lim - 1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Float <-> int8 helpers (calibration time; also used by fake-quant / QAT).
+# ---------------------------------------------------------------------------
+
+
+def scale_from_absmax(absmax: float, qmax: int = INT8_MAX) -> float:
+    absmax = float(absmax)
+    if absmax <= 0.0:
+        return 1.0
+    return absmax / qmax
+
+
+def _f32(scale, device) -> torch.Tensor:
+    """``scale`` (python number, array or tensor) as float32 on ``device``:
+    the JAX package runs these helpers with float32 scales."""
+    if isinstance(scale, torch.Tensor):
+        return scale.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(scale, np.float32), device=device)
+
+
+def quantize_array(x, scale, qmin: int = INT8_MIN, qmax: int = INT8_MAX) -> torch.Tensor:
+    """Float tensor -> int8 (symmetric; ``torch.round`` is round half to
+    even, as ``jnp.rint``)."""
+    x = torch.as_tensor(x)
+    return torch.clamp(torch.round(x / _f32(scale, x.device)), qmin, qmax).to(torch.int8)
+
+
+def dequantize_array(q, scale) -> torch.Tensor:
+    q = torch.as_tensor(q)
+    return q.to(torch.float32) * _f32(scale, q.device)
+
+
+def quantize_weight_per_channel(w, axis: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel symmetric weight quantization.
+
+    Returns ``(q_int8, scales)`` with ``scales`` (float32) shaped to
+    broadcast along ``axis``.  As in the JAX package, ``axis`` is compared
+    with the dimensions as given: a negative one keeps none (one scale).
+    """
+    w = torch.as_tensor(w).to(torch.float32)
+    red = tuple(i for i in range(w.dim()) if i != axis)
+    absmax = torch.amax(torch.abs(w), dim=red, keepdim=True)
+    scales = torch.where(absmax > 0, absmax / WEIGHT_QMAX, torch.ones_like(absmax))
+    q = torch.clamp(torch.round(w / scales), -WEIGHT_QMAX, WEIGHT_QMAX).to(torch.int8)
+    return q, scales
+
+
+def quantize_weight_per_tensor(w) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric weight quantization: ``(q_int8, scale)`` with a
+    float32 0-d ``scale``."""
+    w = torch.as_tensor(w).to(torch.float32)
+    absmax = torch.amax(torch.abs(w))
+    scale = torch.where(absmax > 0, absmax / WEIGHT_QMAX, torch.ones_like(absmax))
+    q = torch.clamp(torch.round(w / scale), -WEIGHT_QMAX, WEIGHT_QMAX).to(torch.int8)
+    return q, scale

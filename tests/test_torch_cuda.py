@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, reduced
+from repro_torch.convert import to_device
 from repro_torch.core.quant_linear import ACT_GELU, ACT_IDENTITY, ACT_RELU
 from repro_torch.deploy import api
 from repro_torch.kernels.igelu import igelu, igelu_ref
@@ -569,3 +570,70 @@ def test_skipped_cow_refused_before_launch_on_the_card(cuda_device, monkeypatch)
     torch.cuda.synchronize()
     assert int8_gemm.launches == before + gemms and sess.cow_copies == 1
     assert sess.allocator.shadow.audit(sess.allocator) == []
+
+
+#: card vs CPU for float results (summation order); scales relative
+FLOAT_ATOL = 1e-4
+SCALE_RTOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mobilebert", "dinov2-small"])
+def test_float_forward_and_calibrated_forward_on_the_card_equal_cpu(cuda_device, arch):
+    from repro_torch.models import encoder as EN
+    from repro_torch.quant.ptq import calibrate_encoder
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = reduced(get_config(arch))
+    params = EN.init_params(cfg, 0)
+    gen = torch.Generator().manual_seed(4)
+    if cfg.vocab and arch == "mobilebert":
+        batches = [{"tokens": torch.randint(0, cfg.vocab, (2, 64), generator=gen,
+                                            dtype=torch.int32)} for _ in range(2)]
+    else:
+        batches = [{"patches": torch.randn((2, 32, cfg.d_model), generator=gen)}
+                   for _ in range(2)]
+    dev_params = to_device(params, cuda_device)
+    dev_batches = [to_device(b, cuda_device) for b in batches]
+    with torch.no_grad():
+        fl = EN.forward(cfg, dev_params, dev_batches[0])
+        assert fl.is_cuda
+        assert (fl.cpu() - EN.forward(cfg, params, batches[0])).abs().max() <= FLOAT_ATOL
+        q = calibrate_encoder(cfg, dev_params, dev_batches)
+        q_cpu = calibrate_encoder(cfg, params, batches)
+        for f in ("s_act", "s_res", "s_w"):
+            assert getattr(q, f) == pytest.approx(getattr(q_cpu, f), rel=SCALE_RTOL), f
+        qp = EN.quantize_params(cfg, params, q)
+        for backend, kernel in (("ita", ita_attention), ("w8a8", itamax)):
+            before = kernel.launches
+            got = EN.forward_w8a8(cfg, to_device(qp, cuda_device), dev_batches[0], q=q,
+                                  backend=backend)
+            torch.cuda.synchronize()
+            assert kernel.launches == before + cfg.n_layers, backend
+            assert torch.equal(got.cpu(), EN.forward_w8a8(cfg, qp, batches[0], q=q,
+                                                          backend=backend)), backend
+
+
+@pytest.mark.cuda
+def test_decoder_float_chain_and_forward_w8a8_on_the_card_equal_cpu(cuda_device):
+    from repro_torch.models import transformer as T
+
+    cfg = reduced(get_config("olmo-1b"))
+    params = T.init_params(cfg, 0)
+    dev_params = to_device(params, cuda_device)
+    tok = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(5),
+                        dtype=torch.int32)
+    with torch.no_grad():
+        got = T.forward(cfg, dev_params, {"tokens": tok.to(cuda_device)})
+        assert (got.cpu() - T.forward(cfg, params, {"tokens": tok})).abs().max() <= FLOAT_ATOL
+        logits, cache = T.prefill(cfg, dev_params, {"tokens": tok.to(cuda_device)}, 20)
+        c_logits, c_cache = T.prefill(cfg, params, {"tokens": tok}, 20)
+        for _ in range(3):
+            nxt = torch.argmax(c_logits[:, -1:], -1).to(torch.int32)
+            assert (logits.cpu() - c_logits).abs().max() <= FLOAT_ATOL
+            logits, cache = T.decode_step(cfg, dev_params, cache, nxt.to(cuda_device))
+            c_logits, c_cache = T.decode_step(cfg, params, c_cache, nxt)
+        assert (cache["k"].cpu() - c_cache["k"]).abs().max() <= FLOAT_ATOL
+        qp = T.quantize_params(cfg, params)
+        got = T.forward_w8a8(cfg, to_device(qp, cuda_device), {"tokens": tok.to(cuda_device)})
+        assert torch.equal(got.cpu(), T.forward_w8a8(cfg, qp, {"tokens": tok}))

@@ -122,6 +122,7 @@ def test_import_leaves_no_jax():
         "import sys, json\n"
         "import repro_torch.deploy.api, repro_torch.launch.serve, repro_torch.convert\n"
         "import repro_torch.deploy.executor, repro_torch.models.transformer\n"
+        "import repro_torch.quant.ptq, repro_torch.launch.dryrun, repro_torch.quant.fake_quant\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "print(json.dumps(bad))\n"
