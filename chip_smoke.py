@@ -160,6 +160,27 @@ exit code and no result line):
    and OLMo-1B on ``ita`` (128-token prompt, 16 decode steps); each must
    return 0 (the plan equals the model-level chain bit for bit) and write
    its record and plan under ``build/``.
+13. families — StableLM-1.6B at full width through the deploy flow, as
+   the decoder phase runs OLMo-1B (compile -> ``DecoderPlanPair`` ->
+   session(8), a 128-token prefill and 16 greedy steps, ``ita`` ==
+   ``w8a8`` == the model chain, ``int8_gemm`` 168 times an ``ita``
+   prefill: 7 GEMMs a layer); Qwen1.5-110B and Mistral-Large-123B
+   compiled and verified as plans (1120 / 1232 ``QNT002`` warnings, no
+   other finding); then each other family at its full published width and
+   depth through ``model_zoo.build(cfg)``: granite-moe-3b-a800m,
+   qwen2-moe-a2.7b, mamba2-370m, zamba2-2.7b, seamless-m4t-large-v2 and
+   llava-next-34b, serve params drawn on the card from seed 0 by a CUDA
+   generator, a prefill of batch 8 by ``input_specs``' rule (128 tokens;
+   seamless 32 frames; llava 576 patches + 448 tokens) and 16 greedy
+   decode steps, each timed with its peak memory, freed before the next,
+   and launching no kernel of ours (the families' model-level paths are
+   cluster code in both packages).  Last, each family against the CPU at
+   full width with its depth cut (llava also to 16 patches), batch 2, 16
+   text positions and 3 steps on the same weights: MoE routing equal in
+   every ``_route`` call and the integer outputs (MoE, seamless, llava)
+   bit-exact; mamba2 and zamba2 on float32 and on their bfloat16 serve
+   params within the stated share of the largest logit, and zamba2's
+   integer shared-attention core bit-exact from one int8 input.
 
 It prints the kernels line (JSON), the nvidia-smi line, and last the
 contract line {"ok": true, "device": {...}}.  It exits non-zero, printing
@@ -798,15 +819,17 @@ def _on(qp, dev):
     return to_device(qp, dev)
 
 
-def decoder_phase(torch, card: str, dev) -> dict[str, int]:
-    """OLMo-1B at full width on both backends, against each other, the
-    model chain on the card and (short prompt) the CPU."""
+def decoder_phase(torch, card: str, dev, arch: str = "olmo-1b",
+                  cpu_check: bool = True) -> dict[str, int]:
+    """A dense decoder (OLMo-1B unless ``arch`` says otherwise) at full width
+    on both backends, against each other, the model chain on the card and
+    (short prompt, where ``cpu_check``) the CPU."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.deploy import api
     from repro_torch.models import transformer as T
 
-    cfg = get_config("olmo-1b")
+    cfg = get_config(arch)
     wrappers = kernels.wrappers()
     launches = dict.fromkeys(wrappers, 0)
     seq, cap, batch, steps = (DECODER[k] for k in ("seq_len", "max_len", "batch", "steps"))
@@ -878,15 +901,17 @@ def decoder_phase(torch, card: str, dev) -> dict[str, int]:
     for be, m in ms.items():
         dec = m["decode"]
         counts = models[be].counts()
-        log(f"  [decoder] olmo-1b ({be}): plan nodes prefill {counts['prefill']['nodes']} "
+        log(f"  [decoder] {cfg.name} ({be}): plan nodes prefill {counts['prefill']['nodes']} "
             f"({counts['prefill']['ita']} ita), decode {counts['decode']['nodes']}; int8_gemm "
             f"{gemm_per_prefill if be == 'ita' else 0} launches a prefill, no kernel a decode "
             f"step; prefill {batch}x{seq} {m['prefill']:.3f} ms; decode step median "
             f"{statistics.median(dec):.3f} ms (min {min(dec):.3f}, max {max(dec):.3f}) over "
             f"{steps} steps: {batch * steps / (sum(dec) / 1e3):.1f} tok/s on {card}")
-    log(f"  [decoder] logits and K/V caches: ita == w8a8 == the model chain on the card at "
-        f"the prefill and all {steps} decode steps (batch {batch}, {cap} KV rows)")
+    log(f"  [decoder] {cfg.name} logits and K/V caches: ita == w8a8 == the model chain on "
+        f"the card at the prefill and all {steps} decode steps (batch {batch}, {cap} KV rows)")
     del sessions, ref_cache, qp_dev
+    if not cpu_check:
+        return launches
 
     # the card against the CPU, full width and depth, short prompt
     seq, cap, batch, steps = (DECODER_CPU[k] for k in ("seq_len", "max_len", "batch", "steps"))
@@ -2096,6 +2121,249 @@ def dryrun_phase(torch, card: str, dev, reduced_cfg: bool = False) -> dict[str, 
     return launches
 
 
+# ---------------------------------------------------------------------------
+# families phase: the other dense decoders and the other model families
+# ---------------------------------------------------------------------------
+
+#: the plan-only dense decoders and their QNT002 warnings (both packages)
+PLAN_ONLY = [("qwen1.5-110b", 1120), ("mistral-large-123b", 1232)]
+#: (arch, prompt positions of the prefill cell, input_specs' rule): batch 8
+#: and 16 greedy decode steps each; llava prepends its 576 patches to 448
+#: tokens (704 positions do not divide the flash blocks of 512 in either
+#: package); seamless encodes min(1024, max(128 // 4, 16)) = 32 frames
+FAMILIES = [("granite-moe-3b-a800m", 128), ("qwen2-moe-a2.7b", 128), ("mamba2-370m", 128),
+            ("zamba2-2.7b", 128), ("seamless-m4t-large-v2", 128), ("llava-next-34b", 1024)]
+FAMILY_BATCH, FAMILY_STEPS = 8, 16
+#: the card against the CPU: full widths, the depth (and llava's patches)
+#: cut so that the CPU's int32 products take seconds; batch 2, 16 text
+#: positions, 3 decode steps
+FAMILY_CPU_CUTS = {
+    "granite-moe-3b-a800m": dict(n_layers=2), "qwen2-moe-a2.7b": dict(n_layers=2),
+    "mamba2-370m": dict(n_layers=2), "zamba2-2.7b": dict(n_layers=6),
+    "seamless-m4t-large-v2": dict(enc_layers=2, dec_layers=2),
+    "llava-next-34b": dict(n_layers=1, n_patches=16),
+}
+FAMILY_CPU = dict(batch=2, seq=16, steps=3)
+#: float chains card vs CPU, by (family, params): max |diff| over the
+#: largest |logit|, float32 params (no TF32) and the bfloat16 serve params.
+#: zamba2's float trunk meets its int8 attention at S_HYB: a last-bit
+#: difference of the trunk moves h_q one step at a rounding boundary, and
+#: the attention's output moves with it (its integer core is held bit for
+#: bit from one h_q instead)
+FAMILY_RTOL = {("ssm", "f32"): 1e-3, ("ssm", "bf16"): 0.1,
+               ("hybrid", "f32"): 0.05, ("hybrid", "bf16"): 0.1}
+
+
+def _family_chain(torch, api, sp, batch, max_len, steps, sync):
+    """prefill, then ``steps`` greedy decode steps: the logits of each, the
+    last cache, the prefill's and each step's ms (host clock, synced)."""
+    t = time.perf_counter()
+    logits, cache = api.prefill(sp, batch, max_len)
+    sync()
+    prefill_ms, step_ms, out = 1e3 * (time.perf_counter() - t), [], [logits]
+    for _ in range(steps):
+        tok = torch.argmax(logits[:, -1].float(), dim=-1).to(torch.int32)[:, None]
+        t = time.perf_counter()
+        logits, cache = api.decode_step(sp, cache, tok)
+        sync()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+        out.append(logits)
+    return out, cache, prefill_ms, step_ms
+
+
+def _hybrid_core_exact(torch, cfg, dev) -> str:
+    """zamba2's integer shared attention from one int8 h_q, on the card and
+    the CPU: the prefill form (16 positions) and a decode step at row 16
+    of a 20-row cache; o_q and the K/V written bit for bit."""
+    from repro_torch.convert import to_device
+    from repro_torch.models import zamba2 as Z
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    shared = Z.init_params(cfg.replace(n_layers=0), SEED, device="cpu")["shared"]
+    sq = Z.quantize_shared(shared)
+    h_q = torch.randint(-128, 128, (2, 16, cfg.d_model), generator=gen, dtype=torch.int8)
+    step = h_q[:, :1].clone()
+    shape = (2, cfg.n_kv_heads, 20, cfg.head_dim)
+    kc = torch.randint(-128, 128, shape, generator=gen, dtype=torch.int8)
+    vc = torch.randint(-128, 128, shape, generator=gen, dtype=torch.int8)
+    outs = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        q = to_device(sq, device)
+        o1, (k1, v1) = Z._shared_attn_core_i8(cfg, q, h_q.to(device), torch.arange(16))
+        kcd, vcd = kc.to(device), vc.to(device)
+        o2, _ = Z._shared_attn_core_i8(cfg, q, step.to(device), [16], (kcd, vcd, 16))
+        outs[where] = [t.cpu() for t in (o1, k1, v1, o2, kcd, vcd)]
+    for i, (a, b) in enumerate(zip(outs["card"], outs["cpu"])):
+        require(torch.equal(a, b), f"zamba2 shared attention core: card and CPU differ ({i})")
+    return "the int8 shared-attention core from one h_q bit-exact (prefill and decode)"
+
+
+def families_phase(torch, card: str, dev) -> dict[str, int]:
+    """StableLM-1.6B through the deploy flow, the two large dense decoders as
+    plans, and each other family at its full published width and depth
+    through ``model_zoo.build(cfg)``, then the card against the CPU."""
+    import collections
+
+    from repro_torch import kernels
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.convert import to_device, tree_leaves
+    from repro_torch.deploy import api as deploy_api
+    from repro_torch.models import build, synthesize_batch
+    from repro_torch.models import moe as M
+
+    wrappers = kernels.wrappers()
+    launches = dict.fromkeys(wrappers, 0)
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    for name, n in decoder_phase(torch, card, dev, arch="stablelm-1.6b",
+                                 cpu_check=False).items():
+        launches[name] += n
+    log(f"  [families] stablelm-1.6b through the plan pair in {time.perf_counter() - t0:.1f}s")
+    for arch, warnings in PLAN_ONLY:
+        for be in ("ita", "w8a8"):
+            t0 = time.perf_counter()
+            m = deploy_api.compile(get_config(arch), backend=be, seq_len=DECODER["seq_len"],
+                                   max_len=DECODER["max_len"], use_cache=False)
+            rules = collections.Counter((d.rule, d.severity) for d in m.diagnostics)
+            require(rules == collections.Counter({("QNT002", "warning"): warnings}),
+                    f"{arch} {be}: findings {dict(rules)}")
+            gemms = sum(n.kind == "gemm" and n.engine == "ita"
+                        for n in m.artifact.prefill.flat_nodes())
+            log(f"  [families] {arch} ({be}) plan only: {m.counts()['prefill']['nodes']} "
+                f"prefill nodes ({gemms} ita GEMMs), {m.counts()['decode']['nodes']} decode "
+                f"nodes, {warnings} QNT002 warnings, compiled and verified in "
+                f"{time.perf_counter() - t0:.1f}s, fingerprint {m.fingerprint[:12]}")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    on_card = None if dev.type == "cuda" else dev
+    for arch, seq in FAMILIES:
+        cfg = get_config(arch)
+        api = build(cfg)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        _counts_zero(wrappers)
+        t0 = time.perf_counter()
+        sp = api.init_serve_params(SEED, device=on_card)
+        sync()
+        t_init = time.perf_counter() - t0
+        leaves = list(tree_leaves(sp))
+        require(all(t.device.type == dev.type for t in leaves), f"{arch}: params off {dev}")
+        n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+        by_dtype = collections.Counter()
+        for t in leaves:
+            by_dtype[str(t.dtype).replace("torch.", "")] += t.numel() * t.element_size()
+        cell = ShapeCell("prefill", seq, FAMILY_BATCH, "prefill")
+        batch = synthesize_batch(cfg, cell, seed=SEED, device=on_card)
+        positions = seq  # a vlm's patches are positions of the prompt
+        max_len = positions + FAMILY_STEPS + 1
+        out, cache, prefill_ms, step_ms = _family_chain(torch, api, sp, batch, max_len,
+                                                        FAMILY_STEPS, sync)
+        _take(wrappers, launches, dev, {}, f"{arch} serving chain")
+        require(int(cache["len"]) == positions + FAMILY_STEPS, f"{arch}: len {cache['len']}")
+        require(all(bool(torch.isfinite(x.float()).all()) for x in out),
+                f"{arch}: non-finite logits")
+        require(tuple(out[-1].shape) == (FAMILY_BATCH, 1, cfg.vocab_padded),
+                f"{arch}: logits {tuple(out[-1].shape)}")
+        peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
+        inputs = ", ".join(f"{k} {tuple(v.shape)} {str(v.dtype)[6:]}" for k, v in batch.items())
+        log(f"  [families] {arch} ({cfg.family}; {cfg.n_layers or cfg.enc_layers} layers, "
+            f"d {cfg.d_model}): serve params {n_bytes / 1e9:.3f} GB "
+            f"({', '.join(f'{k} {v / 1e9:.3f}' for k, v in sorted(by_dtype.items()))}) drawn "
+            f"on {dev.type} in {t_init:.2f}s; prefill [{inputs}] {prefill_ms:.3f} ms; decode "
+            f"step median {statistics.median(step_ms):.3f} ms (min {min(step_ms):.3f}, max "
+            f"{max(step_ms):.3f}) over {FAMILY_STEPS} steps: "
+            f"{FAMILY_BATCH * FAMILY_STEPS / (sum(step_ms) / 1e3):.1f} tok/s; peak "
+            f"{peak:.2f} GB allocated; no kernel of ours launched; on {card}")
+        del sp, cache, out, batch, leaves
+
+    # the card against the CPU: full width, depth cut, the same weights
+    for arch, cuts in FAMILY_CPU_CUTS.items():
+        cfg = get_config(arch).replace(**cuts)
+        api = build(cfg)
+        t0 = time.perf_counter()
+        seq = FAMILY_CPU["seq"] + (cfg.n_patches if cfg.family == "vlm" else 0)
+        cell = ShapeCell("prefill", seq, FAMILY_CPU["batch"], "prefill")
+        batch = synthesize_batch(cfg, cell, seed=SEED + 1, device="cpu")
+        max_len = seq + FAMILY_CPU["steps"] + 1
+        runs = {}
+        float_chain = cfg.family in ("ssm", "hybrid")
+        variants = [("bf16", None)] + ([("f32", torch.float32)] if float_chain else [])
+        routes = {}
+        for label, dtype in variants:
+            if dtype is None:
+                sp = api.init_serve_params(SEED, device=on_card)
+            else:  # the float32 model with the serve params' layout
+                sp = api.init_params(SEED, dtype=dtype, device=on_card)
+                if cfg.family == "hybrid":
+                    from repro_torch.models import zamba2 as Z
+
+                    sp = {"params": sp, "qshared": Z.quantize_shared(sp["shared"])}
+            for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+                calls = []
+                real_route = M._route
+
+                def record(cfg_, w, h, calls=calls):
+                    d, c, a = real_route(cfg_, w, h)
+                    calls.append(d.cpu())
+                    return d, c, a
+
+                M._route = record
+                try:
+                    b = {k: v.to(device) for k, v in batch.items()}
+                    out, cache, _, _ = _family_chain(
+                        torch, api, to_device(sp, device), b, max_len, FAMILY_CPU["steps"],
+                        sync if where == "card" else (lambda: None))
+                finally:
+                    M._route = real_route
+                runs[(label, where)] = ([x.cpu() for x in out],
+                                        {k: v.cpu() for k, v in cache.items()})
+                routes[(label, where)] = calls
+            del sp
+        _counts_zero(wrappers)
+        detail = []
+        for label, _ in variants:
+            (card_out, card_cache), (cpu_out, cpu_cache) = runs[(label, "card")], \
+                runs[(label, "cpu")]
+            if cfg.family == "moe":
+                r_card, r_cpu = routes[(label, "card")], routes[(label, "cpu")]
+                require(len(r_card) == len(r_cpu) > 0 and all(
+                    torch.equal(a, b) for a, b in zip(r_card, r_cpu)),
+                    f"{arch}: the card's routing differs from the CPU's")
+                detail.append(f"routing equal in {len(r_card)} _route calls")
+            if float_chain:
+                scale = max(1.0, max(float(x.float().abs().max()) for x in cpu_out))
+                err = max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(card_out, cpu_out))
+                tol = FAMILY_RTOL[(cfg.family, label)]
+                require(err <= tol * scale, f"{arch} {label}: card vs CPU {err} > "
+                                            f"{tol} x {scale}")
+                detail.append(f"{label} logits max |diff| {err:.3g} (largest |logit| "
+                              f"{scale:.3g}, limit {tol} of it)")
+                if cfg.family == "hybrid":
+                    kv = torch.cat([(card_cache[k].int() - cpu_cache[k].int()).abs().flatten()
+                                    for k in ("k", "v")])
+                    detail.append(f"{label} int8 K/V differ on {float((kv > 0).float().mean()):.3%}"
+                                  f" (max {int(kv.max())})")
+            else:
+                for i, (a, b) in enumerate(zip(card_out, cpu_out)):
+                    require(torch.equal(a, b), f"{arch}: card and CPU logits differ at step {i}")
+                for k in card_cache:
+                    require(torch.equal(card_cache[k], cpu_cache[k]),
+                            f"{arch}: card and CPU cache {k} differ")
+                detail.append("logits and caches bit-exact")
+        if cfg.family == "hybrid":
+            detail.append(_hybrid_core_exact(torch, cfg, dev))
+        log(f"  [families] {arch} card vs CPU ({', '.join(f'{k} {v}' for k, v in cuts.items())}"
+            f"; batch {FAMILY_CPU['batch']}, {seq} positions, {FAMILY_CPU['steps']} steps): "
+            f"{'; '.join(detail)} in {time.perf_counter() - t0:.1f}s")
+    log(f"  [families] phase took {time.perf_counter() - t_phase:.1f}s on {card}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2176,6 +2444,11 @@ def main() -> int:
     phase("[dryrun] python -m repro_torch.launch.dryrun --via-plan in-process: MobileBERT "
           "(ita; head-by-head w8a8) and OLMo-1B (ita, 128 + 16 tokens), batch 8")
     for name, n in dryrun_phase(torch, card, dev).items():
+        launches[name] += n
+    phase("[families] StableLM-1.6B through the plan pair (ita vs w8a8 vs the model chain), "
+          "Qwen1.5-110B and Mistral-Large-123B as plans, and MoE, Mamba2, Zamba2, "
+          "SeamlessM4T and LLaVA-NeXT at full width (prefill + 16 decode steps), card vs CPU")
+    for name, n in families_phase(torch, card, dev).items():
         launches[name] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]

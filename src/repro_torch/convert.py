@@ -1,14 +1,18 @@
 """Carry the JAX package's parameters into the port's dicts.
 
 The two packages draw different random numbers from the same seed, so a
-comparison feeds both the same ints: the JAX side's
-``encoder.quantize_params`` or ``transformer.quantize_params`` output (or
-its float params), turned into numpy arrays by the caller, becomes the
-port's layout here — the stacked ``layers`` pytree (leading layer axis)
-becomes a list of per-layer dicts; every other entry (``embed.table_q``,
-``pos_q``, ``final_norm``, an untied ``lm_head``) is carried as it is.
-No JAX import is needed: the inputs are numpy.  ``tree_map`` /
-``tree_leaves`` / ``to_device`` walk the port's own params trees.
+comparison feeds both the same numbers: the JAX side's params (float
+``init_params``, integer ``init_qparams`` / ``quantize_params``, of any
+family), turned into numpy arrays by the caller, become the port's
+layout here.  Every stack of layers that the reference scans (``layers``,
+an encoder-decoder's ``enc_layers`` / ``dec_layers``; a leading layer
+axis) becomes a list of per-layer dicts, so a mixture-of-experts layer's
+expert stacks [E, ...] stay whole in its layer's dict; every other entry
+(``embed``, ``final_norm``, an untied ``lm_head``, positional tables,
+zamba2's ``shared`` block) is carried as it is, and zamba2's serve params
+``{"params", "qshared"}`` convert part by part.  No JAX import is
+needed: the inputs are numpy.  ``tree_map`` / ``tree_leaves`` /
+``to_device`` walk the port's own params trees.
 """
 
 from __future__ import annotations
@@ -45,26 +49,40 @@ def to_device(tree, device):
 
 
 def _tensor(a, device=None) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carried bit for bit
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+#: the reference's scanned stacks of layers (a leading layer axis)
+_STACKED = ("layers", "enc_layers", "dec_layers")
 
 
 def _convert(tree: dict, device) -> dict:
-    layers = tree["layers"]
-    n = np.asarray(next(tree_leaves(layers))).shape[0]
-    out = {k: tree_map(lambda a: _tensor(a, device), v) for k, v in tree.items()
-           if k != "layers"}
-    out["layers"] = [tree_map(lambda a, i=i: _tensor(np.asarray(a)[i], device), layers)
-                     for i in range(n)]
+    if set(tree) == {"params", "qshared"}:  # zamba2's serve params
+        return {"params": _convert(tree["params"], device),
+                "qshared": tree_map(lambda a: _tensor(a, device), tree["qshared"])}
+    out = {}
+    for key, value in tree.items():
+        if key in _STACKED:
+            n = np.asarray(next(tree_leaves(value))).shape[0]
+            out[key] = [tree_map(lambda a, i=i: _tensor(np.asarray(a)[i], device), value)
+                        for i in range(n)]
+        else:
+            out[key] = tree_map(lambda a: _tensor(a, device), value)
     return out
 
 
 def from_jax_quantized(qp_numpy: dict, device=None) -> dict:
-    """``repro.models.encoder.quantize_params`` or
-    ``repro.models.transformer.quantize_params`` output (numpy) -> port ``qp``."""
+    """The JAX package's integer params (numpy): ``quantize_params`` of the
+    encoder or the transformer, ``init_qparams`` of the transformer (dense,
+    vlm, moe) or of ``encdec``, zamba2's ``{"params", "qshared"}`` ->
+    the port's."""
     return _convert(qp_numpy, device)
 
 
 def from_jax_params(params_numpy: dict, device=None) -> dict:
-    """``repro.models.encoder.init_params`` or ``repro.models.transformer.init_params``
-    output (numpy) -> port float params."""
+    """The JAX package's float ``init_params`` output (numpy) of any family
+    -> the port's float params."""
     return _convert(params_numpy, device)

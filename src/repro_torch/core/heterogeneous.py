@@ -32,10 +32,12 @@ class Engine(enum.Enum):
     CLUSTER = "cluster"
 
 
-# ITA geometric constraints (Section IV-B): vector length 64, 64-granule
-# tiles.  The kernel backend aligns to 128, as the reference's TPU kernels
-# did, so that plans, tilings and paddings are the reference's.
+# ITA geometric constraints (Section IV-B): vector length 64, dimensions
+# up to 512, 64-granule tiles.  The kernel backend aligns to 128, as the
+# reference's TPU kernels did, so that plans, tilings and paddings are the
+# reference's.
 ITA_GRANULE = 64
+ITA_MAX_DIM = 512
 TPU_GRANULE = 128
 
 PALLAS_GRANULE = TPU_GRANULE

@@ -18,7 +18,12 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.quant.qparams import i32, make_qparams, requantize
+from repro_torch.quant.qparams import (  # noqa: F401  (QParams: the reference's name)
+    QParams,
+    i32,
+    make_qparams,
+    requantize,
+)
 
 ERF_A = -0.2888
 ERF_B = -1.769

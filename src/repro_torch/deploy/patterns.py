@@ -217,6 +217,10 @@ def split_heads(g: Graph) -> Graph:
     return g
 
 
+#: ops the extended ITA accepts (GEMM mode + fused activation + MHA head)
+ITA_OPS = {"MatMul", "GELU", "MHAHead", "MHA"}
+
+
 def map_engines(g: Graph, granule: int = ITA_GRANULE) -> Graph:
     """Per-node accelerator-vs-cluster decision (Deeploy's bottom-up rule:
     accelerated when supported, fallback kernel otherwise).

@@ -23,7 +23,6 @@ from repro_torch.configs import get_config, reduced
 
 
 def main(argv=None):
-    from repro_torch.core.heterogeneous import Backend
     from repro_torch.deploy.serving.async_engine import AsyncEngine
     from repro_torch.deploy.serving.frontend import ServingFrontend
     from repro_torch.launch.cli import (
@@ -46,10 +45,11 @@ def main(argv=None):
     ap.add_argument("--port", type=int, default=8080,
                     help="0 picks a free port (printed on startup)")
     ap.add_argument("--verbose", action="store_true", help="per-request access log")
-    add_plan_args(ap, backend_default=Backend.ITA)
     add_engine_args(ap)
     add_serving_args(ap)
     add_sanitize_args(ap)
+    add_plan_args(ap, via_plan_help="accepted for compatibility; serving is "
+                  "always plan-backed")
     args = ap.parse_args(argv)
     apply_sanitize_args(args)  # before any engine/allocator exists
 

@@ -42,6 +42,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from repro_torch.deploy.api import CompiledModel, InferenceSession  # noqa: F401
 from repro_torch.deploy.engine import Engine, RequestHandle, RequestStatus
 from repro_torch.deploy.sanitize import make_condition
 

@@ -3,8 +3,8 @@
 ``add_plan_args`` installs the compile-and-bind block that
 ``python -m repro_torch.launch.serve``, ``python -m
 repro_torch.deploy.serving`` and ``python -m repro_torch.launch.dryrun``
-share: ``--via-plan`` where the entry point has a model-level path beside
-the plan (dryrun), ``--backend`` validated and normalised by
+share: ``--via-plan`` (dryrun's model-level path beside the plan; the
+serving entry points accept it for compatibility), ``--backend`` validated and normalised by
 :func:`parse_backend` against the dispatch vocabulary
 (:func:`plan_backend_names`), and the port's own options (the paged KV
 region, the seed, ``--device``).  ``add_engine_args`` /
@@ -45,21 +45,18 @@ def parse_backend(name: str) -> Backend:
         raise argparse.ArgumentTypeError(str(e)) from None
 
 
-def add_plan_args(ap: argparse.ArgumentParser, *, via_plan_help: str | None = None,
-                  backend_default: Backend = Backend.W8A8) -> None:
+def add_plan_args(ap: argparse.ArgumentParser, *, via_plan_help: str) -> None:
     """Install the shared compile-and-bind block.
 
-    ``--via-plan`` (only where ``via_plan_help`` is given: the serving
-    entry points always run the plan), ``--backend`` parsed straight to a
-    :class:`Backend` member (``args.backend.value`` is the name; the
-    reference's default ``w8a8``, the serving entry points pass ``ita``),
-    the paged KV region (``--kv-block-size`` / ``--kv-blocks``), the plan
-    cache, the seed of the random weights and ``--device`` (the card
-    unless ``cpu``)."""
-    if via_plan_help is not None:
-        ap.add_argument("--via-plan", action="store_true", help=via_plan_help)
+    ``--via-plan`` (the serving entry points accept it for compatibility:
+    they always run the plan), ``--backend`` parsed straight to a
+    :class:`Backend` member (``args.backend.value`` is the name; default
+    ``w8a8``), the paged KV region (``--kv-block-size`` /
+    ``--kv-blocks``), the plan cache, the seed of the random weights and
+    ``--device`` (the card unless ``cpu``)."""
+    ap.add_argument("--via-plan", action="store_true", help=via_plan_help)
     ap.add_argument(
-        "--backend", type=parse_backend, default=backend_default,
+        "--backend", type=parse_backend, default=Backend.W8A8,
         metavar="|".join(plan_backend_names()),
         help="plan-executor backend: the paper-faithful integer arithmetic (w8a8) or "
              "the CUDA kernels (ita)")

@@ -7,7 +7,7 @@ with the device's name:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mobilebert --batch 8 --gen 4
 
-A dense decoder (``--arch olmo-1b``) is served by the continuous-batching
+A dense decoder (``--arch olmo-1b``, the default) is served by the continuous-batching
 ``repro_torch.deploy.engine.Engine``, as in the JAX package: ``--requests``
 prompts (lengths staggered over ``--prompt-len`` .. ``--prompt-len +
 --extra-prompt``) are *submitted*, and the engine owns admission, the
@@ -30,9 +30,12 @@ pick the admission policy, ``--sampling temperature`` the sampler.
 ``--sanitize`` (``REPRO_SANITIZE=1``) serves under the concurrency and
 KV-lifetime sanitizer: lockdep-tracked locks and the shadow block pool.
 
-``--backend w8a8`` runs the paper-faithful integer arithmetic instead of
-the kernel backend (on the card its rowwise softmax is the ``itamax``
-kernel).  ``--device cpu`` runs the plain PyTorch versions on the CPU.
+The default backend, ``w8a8``, runs the paper-faithful integer
+arithmetic (on the card its rowwise softmax is the ``itamax`` kernel);
+``--backend ita`` runs the CUDA kernels.  ``--via-plan`` is accepted for
+compatibility (serving is always plan-backed), and a family that plan
+lowering does not support exits with ``cannot serve <name>: ...``, as in
+the JAX package.  ``--device cpu`` runs the plain PyTorch versions on the CPU.
 ``--profile`` traces, after the timed run, one batch (encoder) or one
 engine step that holds a prefill and one step of pure decode (decoder),
 and prints the device time by kernel (``torch.profiler``: the top
@@ -49,7 +52,6 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.configs import get_config, reduced
-from repro_torch.core.heterogeneous import Backend
 from repro_torch.deploy import api
 from repro_torch.deploy.paging import blocks_for_rows
 from repro_torch.launch.cli import (
@@ -352,15 +354,16 @@ def _profile_steps(engine, prompt_len: int, seed: int) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="mobilebert")
+    ap.add_argument("--arch", default="olmo-1b")
     ap.add_argument("--reduced", action="store_true", help="tiny same-family variant")
     ap.add_argument("--extra-prompt", type=int, default=2,
                     help="decoder: stagger prompt lengths up to this many tokens past "
                          "--prompt-len")
-    add_plan_args(ap, backend_default=Backend.ITA)
     add_engine_args(ap)
     add_serving_args(ap)
     add_sanitize_args(ap)
+    add_plan_args(ap, via_plan_help="accepted for compatibility; serving is "
+                  "always plan-backed (compile() -> Engine/InferenceSession)")
     ap.add_argument("--head-by-head", action="store_true",
                     help="encoder: lower with the paper's per-head MHA schedule")
     ap.add_argument("--profile", action="store_true",
@@ -372,7 +375,10 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    model = compile_for_serving(cfg, args, extra_prompt=args.extra_prompt)
+    try:
+        model = compile_for_serving(cfg, args, extra_prompt=args.extra_prompt)
+    except api.UnsupportedFamilyError as e:
+        raise SystemExit(f"cannot serve {cfg.name}: {e}") from None
     if model.kind == "encoder":
         return serve_encoder(model, batch_size=args.batch, steps=args.gen, seed=args.seed,
                              device=args.device, profile=args.profile)

@@ -23,7 +23,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import ilayernorm as iln
-from repro_torch.core.attention import MhaQParams, attention_rowwise_i8
+from repro_torch.core.attention import (  # noqa: F401  (attention_f32: the reference's name)
+    MhaQParams,
+    attention_f32,
+    attention_rowwise_i8,
+)
 from repro_torch.core.quant_linear import ACT_GELU
 from repro_torch.kernels.int8_gemm import int8_gemm
 from repro_torch.kernels.ita_attention import ita_attention

@@ -21,8 +21,10 @@ import torch
 from repro_torch.core import ilayernorm as iln
 from repro_torch.core import itamax as im
 from repro_torch.core.igelu import gelu_f32
-from repro_torch.core.quant_linear import (
+from repro_torch.core.quant_linear import (  # noqa: F401  (ACT_* re-exported)
+    ACT_GELU,
     ACT_IDENTITY,
+    ACT_RELU,
     QLinearParams,
     make_qlinear_params,
     qlinear_i8,
@@ -70,8 +72,10 @@ class QuantConfig:
 
 def init_linear(gen: torch.Generator, d_in: int, d_out: int, bias: bool,
                 dtype=torch.float32, device=None) -> dict:
-    w = torch.randn((d_in, d_out), generator=gen, dtype=dtype) / math.sqrt(d_in)
-    p = {"w": w.to(device)}
+    """Drawn on ``gen``'s device, then moved to ``device`` (default: there)."""
+    device = gen.device if device is None else device
+    w = torch.randn((d_in, d_out), generator=gen, dtype=dtype, device=gen.device)
+    p = {"w": (w / math.sqrt(d_in)).to(device)}
     if bias:
         p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
     return p
@@ -133,6 +137,14 @@ def mask_padded_logits(logits: torch.Tensor, vocab: int) -> torch.Tensor:
     return torch.where(ids < vocab, logits, torch.full_like(logits, -1e9))
 
 
+def token_nll(logits: torch.Tensor, labels: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Mean cross-entropy of ``labels`` under ``logits`` (vocab padding
+    masked; log-softmax in float32): the LMs' ``loss_fn``."""
+    logits = mask_padded_logits(logits, vocab)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return -torch.gather(logp, -1, labels.long()[..., None])[..., 0].mean()
+
+
 def mlp_forward(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "swiglu":
         return (silu(linear(p["gate"], x)) * linear(p["up"], x)) @ p["down"]["w"]
@@ -156,10 +168,12 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
 
 
 def init_qlinear(gen: torch.Generator, d_in: int, d_out: int, bias: bool) -> dict:
-    """Shape-only int8 init (weights uniform in [-127, 127], zero bias)."""
-    p = {"w_q": torch.randint(-127, 128, (d_in, d_out), generator=gen, dtype=torch.int8)}
+    """Shape-only int8 init (weights uniform in [-127, 127], zero bias), on
+    ``gen``'s device."""
+    p = {"w_q": torch.randint(-127, 128, (d_in, d_out), generator=gen, dtype=torch.int8,
+                              device=gen.device)}
     if bias:
-        p["b_q"] = torch.zeros((d_out,), dtype=torch.int32)
+        p["b_q"] = torch.zeros((d_out,), dtype=torch.int32, device=gen.device)
     return p
 
 

@@ -1,0 +1,245 @@
+"""Mixture-of-Experts FFN (GShard-style dispatch), float and integer (w8a8) paths — torch port.
+
+Routing and combine run in float32 on the "cluster" path (the paper's
+auxiliary-op rule: data-dependent control flow is no ITA op); the expert
+products are int8 with int32 accumulation on the integer path.
+
+Dispatch is the capacity-based form of the JAX package, grouped to keep
+its cost linear in sequence length, with experts padded to a multiple of
+:data:`EP_PAD_TO` (padded experts get -1e9 router logits and no tokens).
+Three choices keep the port on the reference's ints:
+
+- the top-k is a stable descending sort, so that equal probabilities
+  pick the lower expert first, as ``jax.lax.top_k`` does (``torch.topk``
+  promises no order between ties);
+- ``dispatch`` and ``combine`` are built by scatter: each (token, k)
+  owns one (expert, slot) cell, so every entry is exactly 0, 1 or the
+  token's normalised router weight;
+- the int8 gather of the dispatched tokens and the combine are computed
+  on any device in the same order (:func:`_combine_w8a8`).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.quant_linear import ACT_IDENTITY  # noqa: F401  (the reference's name)
+from repro_torch.models import layers as L
+from repro_torch.quant.qparams import i32, imatmul, make_qparams, requantize
+
+EP_PAD_TO = 16  # model-axis size of the reference's production mesh
+DISPATCH_GROUP = 1024  # tokens per dispatch group
+
+
+def n_experts_padded(cfg: ArchConfig) -> int:
+    return int(math.ceil(cfg.n_experts / EP_PAD_TO) * EP_PAD_TO)
+
+
+# ---------------------------------------------------------------------------
+# Params (drawn on ``gen``'s device)
+# ---------------------------------------------------------------------------
+
+
+def init_moe_layer(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32,
+                   device=None) -> dict:
+    e = n_experts_padded(cfg)
+    d, f = cfg.d_model, cfg.d_ff_expert
+    device = gen.device if device is None else device
+
+    def randn(*shape, scale):
+        return (torch.randn(shape, generator=gen, dtype=dtype, device=gen.device)
+                * scale).to(device)
+
+    p = {
+        "router": {"w": randn(d, e, scale=0.02)},
+        "experts": {
+            "gate": randn(e, d, f, scale=1 / math.sqrt(d)),
+            "up": randn(e, d, f, scale=1 / math.sqrt(d)),
+            "down": randn(e, f, d, scale=1 / math.sqrt(f)),
+        },
+    }
+    if cfg.n_shared_experts:
+        fs = cfg.n_shared_experts * cfg.d_ff_expert
+        p["shared"] = L.init_mlp(gen, d, fs, dtype, device, kind="swiglu")
+    return p
+
+
+def init_qmoe_layer(cfg: ArchConfig, gen: torch.Generator) -> dict:
+    e = n_experts_padded(cfg)
+    d, f = cfg.d_model, cfg.d_ff_expert
+
+    def randint(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8,
+                             device=gen.device)
+
+    p = {
+        # the router stays float32: a cluster op
+        "router": {"w": torch.randn((d, e), generator=gen, dtype=torch.float32,
+                                    device=gen.device) * 0.02},
+        "experts": {"gate_q": randint(e, d, f), "up_q": randint(e, d, f),
+                    "down_q": randint(e, f, d)},
+    }
+    if cfg.n_shared_experts:
+        fs = cfg.n_shared_experts * cfg.d_ff_expert
+        p["shared"] = {
+            "gate": L.init_qlinear(gen, d, fs, False),
+            "up": L.init_qlinear(gen, d, fs, False),
+            "down": L.init_qlinear(gen, fs, d, False),
+        }
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Routing (shared by both paths; float32)
+# ---------------------------------------------------------------------------
+
+
+def capacity(cfg: ArchConfig, g_tokens: int) -> int:
+    """Slots per expert in a group of ``g_tokens``: at least ``top_k``."""
+    cap = int(math.ceil(g_tokens * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+    return max(cap, cfg.top_k)
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k``: the k largest, ties to the lower index."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(cfg: ArchConfig, router_w: torch.Tensor, h_f32: torch.Tensor):
+    """h [G, g, D] -> dispatch [G, g, E, C] (0/1), combine [G, g, E, C]
+    float32, and the load-balance loss."""
+    e = n_experts_padded(cfg)
+    n_g, g_tokens, _ = h_f32.shape
+    cap = capacity(cfg, g_tokens)
+    logits = torch.einsum("gtd,de->gte", h_f32, router_w.to(torch.float32))
+    if e != cfg.n_experts:  # mask the padded experts
+        pad = torch.arange(e, device=logits.device) >= cfg.n_experts
+        logits = torch.where(pad, torch.full_like(logits, -1e9), logits)
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = _top_k(probs, cfg.top_k)  # [G, g, K]
+    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+
+    # position of each (token, k) in its expert's queue, in (t, k) order
+    onehot = F.one_hot(topi, e)  # [G, g, K, E] int64
+    flat = onehot.reshape(n_g, -1, e)
+    pos = ((torch.cumsum(flat, dim=1) - flat) * flat).sum(-1).reshape(topi.shape)
+    keep = pos < cap
+    cell = topi * cap + torch.clamp(pos, max=cap - 1)  # distinct per token
+    zeros = torch.zeros((n_g, g_tokens, e * cap), dtype=torch.float32, device=h_f32.device)
+    dispatch = zeros.scatter(2, cell, keep.to(torch.float32)).reshape(n_g, g_tokens, e, cap)
+    combine = zeros.scatter(2, cell, topv * keep).reshape(n_g, g_tokens, e, cap)
+    aux = _load_balance_loss(probs[..., : cfg.n_experts],
+                             onehot[..., : cfg.n_experts].to(torch.float32))
+    return dispatch, combine, aux
+
+
+def _load_balance_loss(probs: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
+    """Switch-style auxiliary load-balancing loss."""
+    density = onehot.sum(2).mean(1)  # [G, E] fraction routed
+    density_proxy = probs.mean(1)  # [G, E] mean router probability
+    return (density * density_proxy).sum(-1).mean() * probs.shape[-1]
+
+
+def _group(x: torch.Tensor, g: int):
+    t = x.shape[0]
+    if t % g:
+        g = t  # one group for token counts that do not divide
+    return x.reshape(t // g, g, *x.shape[1:]), g
+
+
+# ---------------------------------------------------------------------------
+# Float path
+# ---------------------------------------------------------------------------
+
+
+def moe_ffn(cfg: ArchConfig, p: dict, h: torch.Tensor):
+    """h [B, S, D] -> (out [B, S, D], aux_loss)."""
+    b, s, d = h.shape
+    grouped, _ = _group(h.reshape(b * s, d), DISPATCH_GROUP)
+    dispatch, combine, aux = _route(cfg, p["router"]["w"], grouped.to(torch.float32))
+    xe = torch.einsum("gtec,gtd->gecd", dispatch.to(h.dtype), grouped)
+    ex = p["experts"]
+    ge = torch.einsum("gecd,edf->gecf", xe, ex["gate"])
+    ue = torch.einsum("gecd,edf->gecf", xe, ex["up"])
+    ye = torch.einsum("gecf,efd->gecd", L.silu(ge) * ue, ex["down"])
+    out = torch.einsum("gtec,gecd->gtd", combine.to(h.dtype), ye).reshape(b, s, d)
+    if "shared" in p:
+        out = out + L.mlp_forward(p["shared"], h, "swiglu")
+    return out, aux
+
+
+# ---------------------------------------------------------------------------
+# Integer path (expert products int8; routing and combine float32 cluster ops)
+# ---------------------------------------------------------------------------
+
+
+def _expert_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("gecd,edf->gecf")`` of int8 operands with int32
+    accumulation: one exact product per expert (``imatmul``; CUDA has no
+    batched int32 product)."""
+    return torch.stack([imatmul(x[:, e], w[e]) for e in range(w.shape[0])], dim=1)
+
+
+def _experts_w8a8(experts: dict, grouped: torch.Tensor, dispatch: torch.Tensor,
+                  q: L.QuantConfig) -> torch.Tensor:
+    """The integer expert path from the routing: int8 tokens [G, g, D] and
+    ``dispatch`` [G, g, E, C] -> int8 expert outputs [G, E, C, D]."""
+    # the 0/1 dispatch is a gather: at most one token a slot, so the
+    # float32 product is exact (every int8 is a float32, also under TF32)
+    xe = torch.einsum("gtec,gtd->gecd", dispatch.to(torch.float32),
+                      grouped.to(torch.float32)).to(torch.int8)
+    qpa = make_qparams(q.s_act, q.s_w, q.s_act)
+    ge = requantize(_expert_mm(xe, experts["gate_q"]), qpa.mult, qpa.shift)
+    ue = requantize(_expert_mm(xe, experts["up_q"]), qpa.mult, qpa.shift)
+    sg = L.isilu_i8(ge, q.s_act, q.s_act)
+    qprod = make_qparams(q.s_act, q.s_act, q.s_act)
+    inner = requantize(i32(sg) * ue, qprod.mult, qprod.shift)
+    return requantize(_expert_mm(inner, experts["down_q"]), qpa.mult, qpa.shift)
+
+
+def _combine_w8a8(combine: torch.Tensor, ye: torch.Tensor, q: L.QuantConfig,
+                  top_k: int) -> torch.Tensor:
+    """``rint(einsum("gtec,gecd->gtd", combine, ye * s_act) / s_act)`` onto
+    int8 [G, g, D].
+
+    A token has at most ``top_k`` nonzero weights in ``combine``: their
+    products, each rounded to float32, are summed in ascending expert
+    order, elementwise, so that the card and the CPU give the same float
+    (a library product would pick its own order and fused multiply-adds).
+    """
+    n_g, g_tokens, e, cap = combine.shape
+    w, cell = torch.topk(combine.reshape(n_g, g_tokens, e * cap), top_k, dim=-1)
+    cell, order = torch.sort(cell, dim=-1)
+    w = torch.gather(w, -1, order)
+    ye_f = ye.to(torch.float32) * q.s_act
+    rows = ye_f.reshape(n_g, 1, e * cap, -1).expand(n_g, g_tokens, e * cap, ye.shape[-1])
+    picked = torch.gather(rows, 2, cell[..., None].expand(-1, -1, -1, ye.shape[-1]))
+    out = w[..., 0, None] * picked[:, :, 0]
+    for k in range(1, top_k):
+        out = out + w[..., k, None] * picked[:, :, k]
+    return torch.clamp(torch.round(out / q.s_act), -128, 127).to(torch.int8)
+
+
+def moe_ffn_w8a8(cfg: ArchConfig, lp: dict, h_q: torch.Tensor, q: L.QuantConfig) -> torch.Tensor:
+    """h_q int8 [B, S, D] (s_act grid) -> int8 [B, S, D] (s_act grid)."""
+    b, s, d = h_q.shape
+    grouped, _ = _group(h_q.reshape(b * s, d), DISPATCH_GROUP)
+    h_f32 = grouped.to(torch.float32) * q.s_act
+    dispatch, combine, _ = _route(cfg, lp["router"]["w"], h_f32)
+    ye = _experts_w8a8(lp["experts"], grouped, dispatch, q)
+    out_q = _combine_w8a8(combine, ye, q, cfg.top_k).reshape(b, s, d)
+    if "shared" in lp:
+        site = L.QLinearSite(q.s_act, q.s_w, q.s_act)
+        qprod = make_qparams(q.s_act, q.s_act, q.s_act)
+        gq = L.qlinear(lp["shared"]["gate"], h_q, site)
+        uq = L.qlinear(lp["shared"]["up"], h_q, site)
+        sgq = L.isilu_i8(gq, q.s_act, q.s_act)
+        innq = requantize(i32(sgq) * uq, qprod.mult, qprod.shift)
+        sh = L.qlinear(lp["shared"]["down"], innq, site)
+        out_q = L.iadd_i8(out_q, sh, *L.make_iadd_params(q.s_act, q.s_act, q.s_act))
+    return out_q

@@ -10,19 +10,25 @@ arithmetic (exact integer products on any device,
 ``quant.qparams.imatmul``); the deploy flow's plans equal it on both
 backends.
 
+Covers the dense decoders (OLMo-1B, StableLM-1.6B, Qwen1.5-110B,
+Mistral-Large-123B), the mixture-of-experts decoders (their MLP is
+``models.moe``) and the llava-next-34b backbone (``family == "vlm"``:
+precomputed patch embeddings, int8 on the integer path, are prepended to
+the tokens' embeddings).
+
 Parameters are plain dicts; ``params["layers"]`` is a list with one dict
 per layer (the JAX package stacks them and scans).  A KV cache is
 ``{"k": [L, B, Hkv, max_len, D], "v": ..., "len": int32}`` (int8 on the
 integer path, float on the float one), with ``len`` a host (CPU) tensor:
 RoPE angles and cache rows are chosen on the host.  The functions here are
 pure: a decode step returns a new cache and leaves its argument as it was.
-Mixture-of-experts layers are not ported: they raise.
+The JAX package's sharding constraints (``runtime.activations.constrain``)
+are no-ops outside a sharding policy and have no counterpart on one card.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
@@ -34,7 +40,9 @@ from repro_torch.core.attention import (
     attention_flash_i8,
 )
 from repro_torch.core.itamax import ITAMAX_LOGIT_SCALE
+from repro_torch.core.quant_linear import ACT_IDENTITY  # noqa: F401  (the reference's name)
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.quant.fake_quant import fake_quant_weight
 from repro_torch.quant.qparams import i32, imatmul, make_qparams, requantize
 
@@ -45,18 +53,16 @@ def _qkv_dims(cfg: ArchConfig) -> int:
     return (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
 
 
-def _dense_only(cfg: ArchConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: mixture-of-experts layers are not ported")
-
-
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
 
 
 def init_layer(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32, device=None) -> dict:
-    _dense_only(cfg)
+    if cfg.n_experts:
+        mlp = moe_mod.init_moe_layer(cfg, gen, dtype, device)
+    else:
+        mlp = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device, kind=cfg.mlp)
     return {
         "norm1": L.init_norm(cfg.norm, cfg.d_model, dtype, device),
         "attn": {
@@ -66,7 +72,7 @@ def init_layer(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32, devic
                                 device),
         },
         "norm2": L.init_norm(cfg.norm, cfg.d_model, dtype, device),
-        "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device, kind=cfg.mlp),
+        "mlp": mlp,
     }
 
 
@@ -136,9 +142,11 @@ def attn_block(cfg: ArchConfig, lp: dict, x: torch.Tensor, positions, *, qat: bo
 
 
 def mlp_block(cfg: ArchConfig, lp: dict, x: torch.Tensor):
-    """Returns (x, aux_loss): aux is the MoE load-balance term, 0 here."""
-    _dense_only(cfg)
+    """Returns (x, aux_loss): aux is the MoE load-balance term (0 if dense)."""
     h = L.norm_apply(cfg.norm, lp["norm2"], x)
+    if cfg.n_experts:
+        out, aux = moe_mod.moe_ffn(cfg, lp["mlp"], h)
+        return x + out, aux
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + L.mlp_forward(lp["mlp"], h, cfg.mlp), aux
 
@@ -150,7 +158,11 @@ def layer_fwd(cfg: ArchConfig, lp: dict, x: torch.Tensor, positions, *, qat: boo
 
 
 def embed_input(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
-    return params["embed"]["table"][batch["tokens"].long()]
+    x = params["embed"]["table"][batch["tokens"].long()]
+    if cfg.family == "vlm" and "patches" in batch:
+        # anyres stub: precomputed patch embeddings prepended to the text
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+    return x
 
 
 def lm_head(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -162,7 +174,8 @@ def lm_head(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
 
 def forward(cfg: ArchConfig, params: dict, batch: dict, *, qat: bool = False,
             return_aux: bool = False, remat: bool = False):
-    """Causal LM forward: logits [B, S, vocab_padded] (and the MoE aux).
+    """Causal LM forward: logits [B, S (+ patches), vocab_padded] (and the
+    MoE aux, summed over the layers).
     ``remat`` recomputes each layer's activations in the backward pass."""
     x = embed_input(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
@@ -187,11 +200,10 @@ MOE_AUX_WEIGHT = 0.01
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *, qat: bool = False,
             remat: bool = False) -> torch.Tensor:
     logits, aux = forward(cfg, params, batch, qat=qat, return_aux=True, remat=remat)
-    labels = batch["labels"].long()
-    logits = L.mask_padded_logits(logits, cfg.vocab)
-    logp = F.log_softmax(logits.to(torch.float32), dim=-1)
-    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
-    return nll.mean() + MOE_AUX_WEIGHT * aux
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:  # vlm: drop the patch positions
+        logits = logits[:, -labels.shape[1]:]
+    return L.token_nll(logits, labels, cfg.vocab) + MOE_AUX_WEIGHT * aux
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.float32,
@@ -251,28 +263,30 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor)
 # ---------------------------------------------------------------------------
 
 
-def _qnorm(cfg: ArchConfig) -> dict:
+def _qnorm(cfg: ArchConfig, device=None) -> dict:
     if cfg.norm == "np_layernorm":
         return {}
-    p = {"g_q": torch.full((cfg.d_model,), 64, dtype=torch.int8)}
+    p = {"g_q": torch.full((cfg.d_model,), 64, dtype=torch.int8, device=device)}
     if cfg.norm == "layernorm":
-        p["beta_q"] = torch.zeros((cfg.d_model,), dtype=torch.int32)
+        p["beta_q"] = torch.zeros((cfg.d_model,), dtype=torch.int32, device=device)
     return p
 
 
 def init_qlayer(cfg: ArchConfig, gen: torch.Generator) -> dict:
-    """Shape-only integer layer (random int8 weights)."""
-    _dense_only(cfg)
+    """Shape-only integer layer (random int8 weights, drawn on ``gen``'s
+    device)."""
     d, f = cfg.d_model, cfg.d_ff
     lp = {
-        "norm1": _qnorm(cfg),
+        "norm1": _qnorm(cfg, gen.device),
         "attn": {
             "wqkv": L.init_qlinear(gen, d, _qkv_dims(cfg), cfg.qkv_bias),
             "wo": L.init_qlinear(gen, cfg.n_heads * cfg.head_dim, d, False),
         },
-        "norm2": _qnorm(cfg),
+        "norm2": _qnorm(cfg, gen.device),
     }
-    if cfg.mlp == "swiglu":
+    if cfg.n_experts:
+        lp["mlp"] = moe_mod.init_qmoe_layer(cfg, gen)
+    elif cfg.mlp == "swiglu":
         lp["mlp"] = {"gate": L.init_qlinear(gen, d, f, False),
                      "up": L.init_qlinear(gen, d, f, False),
                      "down": L.init_qlinear(gen, f, d, False)}
@@ -282,14 +296,16 @@ def init_qlayer(cfg: ArchConfig, gen: torch.Generator) -> dict:
     return lp
 
 
-def init_qparams(cfg: ArchConfig, seed: int = 0) -> dict:
-    """Shape-only integer model (random int8 weights from ``seed``)."""
-    gen = torch.Generator().manual_seed(seed)
+def init_qparams(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
+    """Shape-only integer model (random int8 weights from ``seed``), drawn
+    on ``device`` (the CPU by default) by a generator there."""
+    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
     qp = {
         "layers": [init_qlayer(cfg, gen) for _ in range(cfg.n_layers)],
         "embed": {"table_q": torch.randint(-127, 128, (cfg.vocab_padded, cfg.d_model),
-                                           generator=gen, dtype=torch.int8)},
-        "final_norm": _qnorm(cfg),
+                                           generator=gen, dtype=torch.int8,
+                                           device=gen.device)},
+        "final_norm": _qnorm(cfg, gen.device),
     }
     if not cfg.tie_embeddings:
         qp["lm_head"] = L.init_qlinear(gen, cfg.d_model, cfg.vocab_padded, False)
@@ -380,7 +396,6 @@ def qlayer_fwd(
     flash attention.  Prefill and single-token decode both run this
     function.  ``positions`` are host data (see ``layers.rope_tables_i8``).
     """
-    _dense_only(cfg)
     st = _sites(cfg, q)
     h_q = L.norm_apply_i8(cfg.norm, lp["norm1"], x_q, _S_GAMMA, q.s_act)
     qkv = L.qlinear(lp["attn"]["wqkv"], h_q, st["wqkv"])
@@ -397,7 +412,9 @@ def qlayer_fwd(
     x_q = L.iadd_i8(x_q, out, *st["res_attn"])
 
     h_q = L.norm_apply_i8(cfg.norm, lp["norm2"], x_q, _S_GAMMA, q.s_act)
-    if cfg.mlp == "swiglu":
+    if cfg.n_experts:
+        m = moe_mod.moe_ffn_w8a8(cfg, lp["mlp"], h_q, q)
+    elif cfg.mlp == "swiglu":
         g = L.qlinear(lp["mlp"]["gate"], h_q, st["gate"])
         u = L.qlinear(lp["mlp"]["up"], h_q, st["up"])
         sg = L.isilu_i8(g, q.s_act, q.s_act)
@@ -412,7 +429,11 @@ def qlayer_fwd(
 
 
 def embed_input_w8a8(cfg: ArchConfig, qp: dict, batch: dict) -> torch.Tensor:
-    return qp["embed"]["table_q"][batch["tokens"].long()]
+    x_q = qp["embed"]["table_q"][batch["tokens"].long()]
+    if cfg.family == "vlm" and "patches" in batch:
+        # the frontend stub delivers pre-quantized int8 patch embeddings
+        x_q = torch.cat([batch["patches"].to(torch.int8), x_q], dim=1)
+    return x_q
 
 
 def lm_head_w8a8(cfg: ArchConfig, qp: dict, x_q: torch.Tensor, q: L.QuantConfig):

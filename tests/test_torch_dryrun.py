@@ -50,10 +50,14 @@ class TestSharedCli:
         assert "add_plan_args" in inspect.getsource(dryrun.main)
 
     def test_serving_entry_points_keep_the_kernel_default(self):
+        """The serving entry points take the JAX package's default backend
+        (``w8a8``; ``--backend ita`` picks the kernels) and accept
+        ``--via-plan``, as the shared block installs them."""
         ap = argparse.ArgumentParser()
-        cli.add_plan_args(ap, backend_default=Backend.ITA)
+        cli.add_plan_args(ap, via_plan_help="accepted for compatibility")
         args = ap.parse_args([])
-        assert args.backend is Backend.ITA and not hasattr(args, "via_plan")
+        assert args.backend is Backend.W8A8 and args.via_plan is False
+        assert ap.parse_args(["--backend", "ita"]).backend is Backend.ITA
 
 
 class TestDryrunHeadByHead:

@@ -331,6 +331,18 @@ def test_decoder_forward_w8a8_exact(olmo):
 
 
 def test_moe_float_path_refuses():
-    cfg = t_reduced(t_get_config("olmo-1b")).replace(n_experts=4, family="moe")
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        TT.mlp_block(cfg, {}, torch.zeros(1, 2, cfg.d_model))
+    """The float MLP block of a mixture-of-experts config no longer refuses:
+    it routes through ``models.moe`` and agrees with the JAX package's
+    block (output within ``MODEL``, the load-balance term within ``F32``)."""
+    cfg = reduced(get_config("olmo-1b")).replace(n_experts=4, top_k=2, d_ff_expert=64,
+                                                 family="moe")
+    tcfg = t_reduced(t_get_config("olmo-1b")).replace(n_experts=4, top_k=2, d_ff_expert=64,
+                                                      family="moe")
+    lp = JT.init_layer(cfg, jax.random.PRNGKey(5), jnp.float32)
+    tlp = from_jax_params(jax.tree.map(np.asarray, {"layers": jax.tree.map(
+        lambda a: a[None], lp)}))["layers"][0]
+    x = _f32(_rng(17), 2, 16, cfg.d_model)
+    want, want_aux = JT.mlp_block(cfg, lp, jnp.asarray(x))
+    got, got_aux = TT.mlp_block(tcfg, tlp, _t(x))
+    _close(got, want, MODEL)
+    _close(got_aux, want_aux, F32)

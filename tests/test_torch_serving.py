@@ -660,7 +660,8 @@ def test_serving_module_serves_over_http():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.Popen(
         [sys.executable, "-u", "-m", "repro_torch.deploy.serving", "--reduced", "--device",
-         "cpu", "--no-plan-cache", "--port", "0", "--batch", "2", "--prompt-len", "8"],
+         "cpu", "--no-plan-cache", "--port", "0", "--batch", "2", "--prompt-len", "8",
+         "--backend", "ita"],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
     try:
         line = ""

@@ -111,7 +111,8 @@ def test_session_defaults_to_the_card(monkeypatch):
 
 def test_serve_cli_on_cpu(capsys, tmp_path):
     serve.main(["--arch", "mobilebert", "--reduced", "--batch", "2", "--gen", "1",
-                "--device", "cpu", "--plan-cache", str(tmp_path), "--profile"])
+                "--backend", "ita", "--device", "cpu", "--plan-cache", str(tmp_path),
+                "--profile"])
     out = capsys.readouterr().out
     assert "plan cache miss" in out and "inf/s" in out and "on cpu" in out
     assert "device busy 0.000 ms" in out  # no device kernels on the CPU
@@ -123,6 +124,8 @@ def test_import_leaves_no_jax():
         "import repro_torch.deploy.api, repro_torch.launch.serve, repro_torch.convert\n"
         "import repro_torch.deploy.executor, repro_torch.models.transformer\n"
         "import repro_torch.quant.ptq, repro_torch.launch.dryrun, repro_torch.quant.fake_quant\n"
+        "import repro_torch.models.model_zoo, repro_torch.kernels, repro_torch.configs\n"
+        "repro_torch.kernels.wrappers()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "print(json.dumps(bad))\n"
