@@ -181,6 +181,24 @@ exit code and no result line):
    bit-exact; mamba2 and zamba2 on float32 and on their bfloat16 serve
    params within the stated share of the largest logit, and zamba2's
    integer shared-attention core bit-exact from one int8 input.
+14. train — training on one card (no kernel of ours runs: float32
+   products with TF32 off, on the CUDA cores).  OLMo-1B at its full
+   published width and depth (1.18 G float32 params, 18.8 GB with grads
+   and AdamW moments) through ``repro_torch.launch.train.main`` in-process
+   at its defaults (batch 4 x 128, 10 steps, remat) and 3 steps with 2
+   microbatches accumulated in bfloat16, all losses finite; the same step
+   timed one by one (median and max ms, tok/s, peak memory, an mfu of
+   6 N tokens over the step time and the card's dense float32 peak) and
+   traced once (device busy and idle share, top kernels).  The card
+   against the CPU at full width with 2 layers: two steps with 2
+   microbatches and remat, plain and with QAT, from params drawn once on
+   the CPU, loss, grad_norm and updated params within the stated
+   tolerances.  A Supervisor(save_every=4) run of 10 steps on the
+   example's narrowed OLMo with a failure injected at step 6 must equal
+   the uninterrupted run bit for bit, and a checkpoint of card tensors
+   must restore onto the card bit for bit.  examples/torch_train_tinylm.py
+   --steps 30 in-process, with its own loss-falls assertion; then one step
+   of every arch of the registry, reduced, on the card against the CPU.
 
 It prints the kernels line (JSON), the nvidia-smi line, and last the
 contract line {"ok": true, "device": {...}}.  It exits non-zero, printing
@@ -2364,6 +2382,353 @@ def families_phase(torch, card: str, dev) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# train phase: training on one card (launch.train, AdamW, the data pipeline,
+# checkpoint/restart supervision)
+# ---------------------------------------------------------------------------
+
+#: OLMo-1B at its full published width and depth through launch.train.main
+#: at its defaults (batch 4, seq 128, 10 steps), then ``mb_steps`` steps
+#: accumulating 2 microbatches in bfloat16; ``timed`` steps of the same
+#: step timed one by one (host clock after a sync), then one traced step
+TRAIN = dict(arch="olmo-1b", batch=4, seq=128, steps=10, mb_steps=3, timed=5)
+#: H100 SXM dense float32 peak outside the tensor cores (NVIDIA data sheet):
+#: the mfu's denominator, since TF32 is off and float32 products run there
+PEAK_FP32_FLOP_PER_S = 67e12
+#: the card against the CPU: OLMo-1B's full width, its depth cut to 2
+#: layers; two steps of make_train_step(microbatches=2, remat=True), plain
+#: and with QAT, from the same params drawn once on the CPU
+TRAIN_CPU = dict(n_layers=2, batch=4, seq=64, steps=2)
+#: card vs CPU tolerances, per step, by QAT (tests/test_torch_train.py
+#: holds the port against the JAX package at reduced widths to the same
+#: ones but the QAT share): float32 products and reductions run in another
+#: order on the card; AdamW's early updates are about lr * sign(g), so an
+#: element whose |g| is near eps, or whose bfloat16-accumulated gradient
+#: crosses zero, may move up to 2 * lr apart: every element within
+#: 2 * lr * steps, at most TRAIN_TIGHT_SHARE of them beyond TRAIN_TIGHT.
+#: With QAT a fake-quant input one ulp apart rounds to the next int8 step,
+#: so the forward moves by a whole step there and every gradient behind it
+#: by more than rounding; how many params the second step then moves apart
+#: grows with the width (a one-ulp perturbation of the params, on a CPU
+#: alone: 0 at d 128, 6.4e-4 of them at d 512; an NVIDIA H100 80GB HBM3 at
+#: 700 W against a CPU at OLMo-1B's d 2048: 1.9e-2), so QAT's share is held
+#: to 5e-2
+TRAIN_LOSS_RTOL = {False: 1e-5, True: 1e-4}
+TRAIN_GNORM_RTOL = {False: 1e-4, True: 1e-3}
+TRAIN_LR = 3e-4  # make_train_step's default schedule
+TRAIN_TIGHT = 1e-5
+TRAIN_TIGHT_SHARE = {False: 1e-3, True: 5e-2}
+#: the example's narrowed OLMo (12 layers, d 768, 12x64 heads, d_ff 3072,
+#: vocab 32000; 138M params, 1.65 GB a checkpoint with the AdamW state)
+TINYLM = dict(n_layers=12, d_model=768, n_heads=12, n_kv_heads=12, head_dim=64, d_ff=3072,
+              vocab=32000)
+#: restart: Supervisor(save_every=4) over 10 steps with a failure injected
+#: at step 6, against the same 10 steps uninterrupted; batch 4 x 128
+TRAIN_RESTART = dict(save_every=4, steps=10, fail_at=6, batch=4, seq=128)
+#: examples/torch_train_tinylm.py's arguments (its defaults: batch 8 x 256)
+TINYLM_ARGS = ["--steps", "30"]
+#: each arch of the registry, reduced: one step on the card and the CPU
+TRAIN_FAMILY = dict(batch=2, seq=32)
+
+
+def _train_batch(torch, batch: dict, device) -> dict:
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def _compare_steps(torch, card_run, cpu_run, qat: bool, what: str) -> str:
+    """The card's (losses, grad norms, params) against the CPU's within the
+    stated tolerances; returns what was measured."""
+    from repro_torch.convert import tree_leaves
+
+    (card_m, card_p), (cpu_m, cpu_p) = card_run, cpu_run
+    worst_loss = worst_gn = 0.0
+    for i, ((l1, g1), (l2, g2)) in enumerate(zip(card_m, cpu_m)):
+        worst_loss, worst_gn = max(worst_loss, _rel(l1, l2)), max(worst_gn, _rel(g1, g2))
+        require(_rel(l1, l2) <= TRAIN_LOSS_RTOL[qat], f"{what} step {i}: loss {l1} vs {l2}")
+        require(_rel(g1, g2) <= TRAIN_GNORM_RTOL[qat], f"{what} step {i}: grad_norm {g1} vs {g2}")
+    diff = [(a.float() - b.float()).abs() for a, b in zip(tree_leaves(card_p), tree_leaves(cpu_p))]
+    worst = max(float(d.max()) for d in diff)
+    n = sum(d.numel() for d in diff)
+    share = sum(int((d > TRAIN_TIGHT).sum()) for d in diff) / n
+    steps = len(card_m)
+    require(worst <= 2 * TRAIN_LR * steps, f"{what}: params differ by {worst}")
+    require(share <= TRAIN_TIGHT_SHARE[qat],
+            f"{what}: {share:.3e} of params beyond {TRAIN_TIGHT}")
+    return (f"loss rel {worst_loss:.2e} (limit {TRAIN_LOSS_RTOL[qat]}), grad_norm rel "
+            f"{worst_gn:.2e} (limit {TRAIN_GNORM_RTOL[qat]}), params max |diff| {worst:.2e} "
+            f"(limit {2 * TRAIN_LR * steps:.1e}), {share:.3e} of {n} beyond {TRAIN_TIGHT} "
+            f"(limit {TRAIN_TIGHT_SHARE[qat]})")
+
+
+def _run_steps(torch, api, params, batches, device, **kw):
+    """make_train_step(api, **kw) over ``batches`` on ``device`` from a copy
+    of ``params``: ([(loss, grad_norm)], the params on the host)."""
+    from repro_torch.convert import to_device, tree_map
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.optim import adamw
+
+    p = to_device(tree_map(torch.clone, params), device)
+    o = adamw.init(p)
+    step = make_train_step(api, **kw)
+    metrics = []
+    for b in batches:
+        p, o, m = step(p, o, _train_batch(torch, b, device))
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return metrics, tree_map(lambda t: t.cpu(), p)
+
+
+def _with_qat(api):
+    import dataclasses
+
+    return dataclasses.replace(api, loss_fn=lambda p, b, _f=api.loss_fn, **kw: _f(
+        p, b, qat=True, **kw))
+
+
+def train_phase(torch, card: str, dev, reduced_cfg: bool = False) -> dict[str, int]:
+    """Training on one card: OLMo-1B at full width and depth through
+    ``launch.train.main`` (timed and traced), the card against the CPU at
+    full width, a supervised restart equal to the uninterrupted run, the
+    tinylm example, and one step of every arch against the CPU."""
+    import functools
+    import importlib.util
+    import math
+    import shutil
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import ShapeCell, get_config, list_archs, reduced
+    from repro_torch.convert import tree_leaves, tree_map
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.launch import train as T
+    from repro_torch.launch.serve import profile_call
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.fault import Supervisor
+
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off for float parity")
+    on_card = dev.type == "cuda"
+    wrappers = kernels.wrappers()
+    launches = dict.fromkeys(wrappers, 0)
+    _counts_zero(wrappers)
+    t_phase = time.perf_counter()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def cut(cfg):
+        return reduced(cfg) if reduced_cfg else cfg
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="train-", dir=ROOT / "build"))
+    try:
+        # 1. launch.train.main in-process at its defaults, then 2 microbatches
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        args = ["--arch", TRAIN["arch"], "--batch", str(TRAIN["batch"]), "--seq",
+                str(TRAIN["seq"]), "--device", dev.type, "--ckpt-dir", str(work / "main")]
+        args += ["--reduced"] if reduced_cfg else []
+        t0 = time.perf_counter()
+        losses = T.main(args + ["--steps", str(TRAIN["steps"])])
+        t_main = time.perf_counter() - t0
+        require(len(losses) == TRAIN["steps"] and all(map(math.isfinite, losses)),
+                f"launch.train: losses {losses}")
+        t0 = time.perf_counter()
+        mb = T.main(args + ["--steps", str(TRAIN["mb_steps"]), "--microbatches", "2"])
+        t_mb = time.perf_counter() - t0
+        require(len(mb) == TRAIN["mb_steps"] and all(map(math.isfinite, mb)),
+                f"launch.train --microbatches 2: losses {mb}")
+        # the cosine schedule's lr is 0 at step 0: steps 0 and 1 see the same
+        # params in both runs, so their losses agree to float32 rounding
+        same = max(_rel(mb[i], losses[i]) for i in (0, 1))
+        require(same <= TRAIN_LOSS_RTOL[False], f"microbatches 2 vs 1: losses {mb} vs {losses}")
+        _take(wrappers, launches, dev, {}, "launch.train")
+        peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+        log(f"  [train] launch.train.main ({TRAIN['arch']}, defaults: batch {TRAIN['batch']}, seq "
+            f"{TRAIN['seq']}, {TRAIN['steps']} steps) in {t_main:.1f}s: loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}, all finite; --microbatches 2 (bfloat16 accumulation) "
+            f"{TRAIN['mb_steps']} steps in {t_mb:.1f}s: {', '.join(f'{x:.4f}' for x in mb)} "
+            f"(steps 0-1 within {same:.1e} of the single batch's); peak {peak:.2f} GB "
+            f"allocated; no kernel of ours launched; on {card}")
+
+        # 2. the same step timed one by one, then traced
+        cfg = cut(get_config(TRAIN["arch"]))
+        api = build(cfg)
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        params = api.init_params(SEED, device=None if on_card else dev)
+        opt = adamw.init(params)
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        sched = functools.partial(adamw.cosine_schedule, peak_lr=3e-4, warmup=10, total=20)
+        step = T.make_train_step(api, lr_schedule=sched)
+        dcfg = DataConfig(vocab=cfg.vocab, global_batch=TRAIN["batch"], seq_len=TRAIN["seq"])
+        cell = ShapeCell("train", TRAIN["seq"], TRAIN["batch"], "train")
+        times = []
+        for s in range(TRAIN["timed"] + 1):
+            batch = _train_batch(torch, make_batch(cfg, cell, dcfg, s), dev)
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            sync()
+            times.append(1e3 * (time.perf_counter() - t0))
+        require(math.isfinite(float(m["loss"])), "timed steps: non-finite loss")
+        first, times = times[0], times[1:]
+        med = statistics.median(times)
+        tokens = TRAIN["batch"] * TRAIN["seq"]
+        mfu = 6 * n_params * tokens / (med / 1e3) / PEAK_FP32_FLOP_PER_S
+        peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+        log(f"  [train] {cfg.name} step ({n_params / 1e9:.3f} G params, batch {TRAIN['batch']} x "
+            f"{TRAIN['seq']}, remat, AdamW in place): first {first:.3f} ms, then median "
+            f"{med:.3f} ms, max {max(times):.3f} ms over {len(times)} steps; "
+            f"{tokens / (med / 1e3):.1f} tok/s; mfu {100 * mfu:.1f}% (6 N tokens / step time "
+            f"over the {PEAK_FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s dense float32 peak of the H100 "
+            f"SXM data sheet); peak {peak:.2f} GB allocated; on {card}")
+        batch = _train_batch(torch, make_batch(cfg, cell, dcfg, TRAIN["timed"] + 1), dev)
+        prof = profile_call(lambda: step(params, opt, batch), dev)
+        busy = prof["device_busy_ms"] / med
+        log(f"  [train] traced step: wall {prof['wall_ms']:.3f} ms, device busy "
+            f"{prof['device_busy_ms']:.3f} ms of the untraced median {med:.3f} ms: busy "
+            f"{100 * busy:.1f}%, idle {100 * (1 - busy):.1f}%, {prof['device_kernels']} device "
+            f"kernels; on {card}")
+        _take(wrappers, launches, dev, {}, "the timed and traced steps")
+        del params, opt, step, batch, m
+
+        # 3. the card against the CPU, full width, depth cut
+        cfg2 = cut(get_config(TRAIN["arch"])).replace(n_layers=TRAIN_CPU["n_layers"])
+        api2 = build(cfg2)
+        p_cpu = api2.init_params(SEED, device="cpu")
+        dcfg2 = DataConfig(vocab=cfg2.vocab, global_batch=TRAIN_CPU["batch"],
+                           seq_len=TRAIN_CPU["seq"])
+        cell2 = ShapeCell("train", TRAIN_CPU["seq"], TRAIN_CPU["batch"], "train")
+        batches = [make_batch(cfg2, cell2, dcfg2, s) for s in range(TRAIN_CPU["steps"])]
+        for qat in (False, True):
+            a = _with_qat(api2) if qat else api2
+            t0 = time.perf_counter()
+            runs = [_run_steps(torch, a, p_cpu, batches, d, microbatches=2, remat=True)
+                    for d in (dev, torch.device("cpu"))]
+            what = f"{cfg2.name} {cfg2.n_layers} layers{' qat' if qat else ''}"
+            detail = _compare_steps(torch, runs[0], runs[1], qat, what)
+            log(f"  [train] card vs CPU, {what} (d {cfg2.d_model}, vocab {cfg2.vocab}; batch "
+                f"{TRAIN_CPU['batch']} x {TRAIN_CPU['seq']}, 2 microbatches, remat, "
+                f"{TRAIN_CPU['steps']} steps): {detail} in {time.perf_counter() - t0:.1f}s")
+        _take(wrappers, launches, dev, {}, "card vs CPU")
+        del p_cpu, runs
+
+        # 4. a supervised restart against the uninterrupted run
+        cfg3 = get_config("olmo-1b").replace(**TINYLM, max_seq=TRAIN_RESTART["seq"])
+        cfg3 = reduced(cfg3) if reduced_cfg else cfg3
+        api3 = build(cfg3)
+        p0 = api3.init_params(SEED, device=None if on_card else dev)
+        dcfg3 = DataConfig(vocab=cfg3.vocab, global_batch=TRAIN_RESTART["batch"],
+                           seq_len=TRAIN_RESTART["seq"])
+        cell3 = ShapeCell("tinylm", TRAIN_RESTART["seq"], TRAIN_RESTART["batch"], "train")
+        step3 = T.make_train_step(api3, microbatches=2, lr_schedule=functools.partial(
+            adamw.cosine_schedule, peak_lr=1e-3, warmup=5, total=100))
+
+        def step_fn(state, batch):
+            p, o, metrics = step3(*state, _train_batch(torch, batch, dev))
+            return (p, o), metrics
+
+        runs = {}
+        for fail in (None, TRAIN_RESTART["fail_at"]):
+            p = tree_map(torch.clone, p0)
+            failed = []
+
+            def inject(s, fail=fail, failed=failed):
+                if s == fail and not failed:
+                    failed.append(s)
+                    raise RuntimeError("injected failure")
+
+            ck = Checkpointer(str(work / f"restart-{fail}"))
+            t0 = time.perf_counter()
+            state, hist = Supervisor(ck, save_every=TRAIN_RESTART["save_every"]).run(
+                step_fn, (p, adamw.init(p)), lambda s: make_batch(cfg3, cell3, dcfg3, s), 0,
+                TRAIN_RESTART["steps"], inject_failure=inject)
+            losses = {s: float(m["loss"]) for s, m in hist}
+            runs[fail] = (state, losses, [s for s, _ in hist], time.perf_counter() - t0, ck)
+        (a, la, sa, ta, _), (b, lb, sb, tb, ck) = runs[None], runs[TRAIN_RESTART["fail_at"]]
+        require(sa == list(range(10)) and sb == [0, 1, 2, 3, 4, 5, 4, 5, 6, 7, 8, 9],
+                f"restart: steps {sa} / {sb}")
+        leaves_a, leaves_b = list(_state_leaves(a)), list(_state_leaves(b))
+        worst = max(float((x.float() - y.float()).abs().max()) for x, y in zip(leaves_a, leaves_b))
+        require(la == lb and worst == 0.0 and all(torch.equal(x, y)
+                                                  for x, y in zip(leaves_a, leaves_b)),
+                f"restart: not bit-exact (losses {la} / {lb}, max |diff| {worst})")
+        # a checkpoint written from card tensors restores onto the card bit for bit
+        probe = (b[0], b[1], {"bf16": b[0]["embed"]["table"].to(torch.bfloat16)})
+        ck.save(99, probe)
+        back = ck.restore(99, probe)
+        got, want = list(_state_leaves(back)), list(_state_leaves(probe))
+        require(all(x.device == y.device and x.dtype == y.dtype and torch.equal(x, y)
+                    for x, y in zip(got, want)), "checkpoint round trip on the card differs")
+        last = TRAIN_RESTART["steps"] // TRAIN_RESTART["save_every"] * TRAIN_RESTART["save_every"]
+        size = sum(f.stat().st_size for f in (work / f"restart-{TRAIN_RESTART['fail_at']}"
+                                              / f"step_{last}").iterdir()) / 1e9
+        log(f"  [train] restart ({cfg3.name} narrowed: {cfg3.n_layers} layers, d "
+            f"{cfg3.d_model}; batch {TRAIN_RESTART['batch']} x {TRAIN_RESTART['seq']}, 2 "
+            f"microbatches): Supervisor(save_every={TRAIN_RESTART['save_every']}) with a "
+            f"failure at step {TRAIN_RESTART['fail_at']} replayed steps 4-5 and equals the "
+            f"uninterrupted run bit for bit (losses, params, AdamW state; "
+            f"{ta:.1f}s / {tb:.1f}s with async saves of {size:.2f} GB); a checkpoint of card "
+            f"tensors (a bfloat16 leaf included) restores onto the card bit for bit; on {card}")
+        _take(wrappers, launches, dev, {}, "restart")
+        del runs, a, b, probe, back, p0
+
+        # 5. the tinylm example, in-process
+        path = ROOT / "examples" / "torch_train_tinylm.py"
+        spec = importlib.util.spec_from_file_location("torch_train_tinylm", path)
+        example = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(example)
+        t0 = time.perf_counter()
+        out = example.main(TINYLM_ARGS + ["--ckpt-dir", str(work / "tinylm"), "--device",
+                                          dev.type])
+        require(out["losses"][-1] < out["losses"][0], "tinylm: the loss did not fall")
+        _take(wrappers, launches, dev, {}, "tinylm example")
+        log(f"  [train] examples/torch_train_tinylm.py {' '.join(TINYLM_ARGS)}: "
+            f"{out['n_params'] / 1e6:.1f}M params, loss {out['losses'][0]:.3f} -> "
+            f"{out['losses'][-1]:.3f}, {out['tok_s']:.1f} tok/s (checkpoint writes included) "
+            f"in {time.perf_counter() - t0:.1f}s; on {card}")
+
+        # 6. one step of every arch, reduced, on the card against the CPU
+        t0 = time.perf_counter()
+        rows = []
+        for arch in list_archs():
+            cfg4 = reduced(get_config(arch))
+            api4 = build(cfg4)
+            p4 = api4.init_params(SEED, device="cpu")
+            dcfg4 = DataConfig(vocab=max(cfg4.vocab, 2), global_batch=TRAIN_FAMILY["batch"],
+                               seq_len=TRAIN_FAMILY["seq"])
+            cell4 = ShapeCell("train", TRAIN_FAMILY["seq"], TRAIN_FAMILY["batch"], "train")
+            b4 = [make_batch(cfg4, cell4, dcfg4, 0)]
+            r = [_run_steps(torch, api4, p4, b4, d, remat=True) for d in (dev, torch.device("cpu"))]
+            rows.append(f"{arch}: {_compare_steps(torch, r[0], r[1], False, arch)}")
+        _take(wrappers, launches, dev, {}, "every arch")
+        log(f"  [train] one step of every arch (reduced, batch {TRAIN_FAMILY['batch']} x "
+            f"{TRAIN_FAMILY['seq']}, remat) on the card vs the CPU in "
+            f"{time.perf_counter() - t0:.1f}s:")
+        for row in rows:
+            log(f"    {row}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"  [train] phase took {time.perf_counter() - t_phase:.1f}s on {card}")
+    return launches
+
+
+def _state_leaves(tree):
+    """Every tensor of a tree of dicts, lists and tuples (NamedTuples
+    included), in order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _state_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _state_leaves(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     import torch
 
@@ -2449,6 +2814,11 @@ def main() -> int:
           "Qwen1.5-110B and Mistral-Large-123B as plans, and MoE, Mamba2, Zamba2, "
           "SeamlessM4T and LLaVA-NeXT at full width (prefill + 16 decode steps), card vs CPU")
     for name, n in families_phase(torch, card, dev).items():
+        launches[name] += n
+    phase("[train] training on one card: OLMo-1B at full width and depth through "
+          "launch.train (timed, traced), the card vs the CPU, a supervised restart, the "
+          "tinylm example and one step of every arch")
+    for name, n in train_phase(torch, card, dev).items():
         launches[name] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]

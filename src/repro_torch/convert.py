@@ -12,7 +12,10 @@ expert stacks [E, ...] stay whole in its layer's dict; every other entry
 zamba2's ``shared`` block) is carried as it is, and zamba2's serve params
 ``{"params", "qshared"}`` convert part by part.  No JAX import is
 needed: the inputs are numpy.  ``tree_map`` / ``tree_leaves`` /
-``to_device`` walk the port's own params trees.
+``to_device`` walk the port's own params trees, and ``to_jax_layout``
+goes the other way: it stacks the per-layer lists back to the leading
+layer axis (the checkpointer's on-disk layout, so that files load in
+either package).
 """
 
 from __future__ import annotations
@@ -57,6 +60,41 @@ def _tensor(a, device=None) -> torch.Tensor:
 
 #: the reference's scanned stacks of layers (a leading layer axis)
 _STACKED = ("layers", "enc_layers", "dec_layers")
+
+
+def is_layer_list(key, value) -> bool:
+    """Whether ``value``, found under ``key``, is a list of per-layer dicts
+    that the reference keeps as one stack with a leading layer axis."""
+    return (key in _STACKED and isinstance(value, list) and len(value) > 0
+            and all(isinstance(v, dict) for v in value))
+
+
+def _stack_layers(layers: list, stack):
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack_layers([lp[k] for lp in layers], stack) for k in first}
+    if isinstance(first, list):
+        return [_stack_layers([lp[i] for lp in layers], stack) for i in range(len(first))]
+    return stack(layers)
+
+
+def to_jax_layout(tree, stack=torch.stack):
+    """The port's params, or any tree that holds them (an optimizer state, a
+    ``(params, state)`` tuple), in the JAX package's layout: each list of
+    per-layer dicts under ``layers`` / ``enc_layers`` / ``dec_layers``
+    becomes one dict whose leaves are ``stack`` of the layers' leaves
+    (``torch.stack`` unless given: a new leading layer axis).  The inverse
+    of ``from_jax_params`` / ``from_jax_quantized``; tuples, NamedTuples
+    included, keep their type."""
+    if isinstance(tree, dict):
+        return {k: _stack_layers(v, stack) if is_layer_list(k, v) else to_jax_layout(v, stack)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_jax_layout(v, stack) for v in tree]
+    if isinstance(tree, tuple):
+        items = [to_jax_layout(v, stack) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree
 
 
 def _convert(tree: dict, device) -> dict:

@@ -20,6 +20,7 @@ per layer.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import ilayernorm as iln
@@ -100,13 +101,20 @@ def embed(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
     return x + params["pos"][: x.shape[1]].to(x.dtype)
 
 
-def forward(cfg: ArchConfig, params: dict, batch: dict, *, qat: bool = False) -> torch.Tensor:
+def forward(cfg: ArchConfig, params: dict, batch: dict, *, qat: bool = False,
+            remat: bool = False) -> torch.Tensor:
     """Float forward: MLM logits [B, S, vocab] (tokens) or hidden states
-    [B, S, D]."""
+    [B, S, D].  ``remat`` recomputes each layer's activations in the
+    backward pass (the JAX package's encoder refuses the keyword, so its
+    training step fails at its default ``remat=True``)."""
     x = embed(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
+
+    def body(x, lp):
+        return layer_fwd(cfg, lp, x, positions, qat=qat, causal=False)[0]
+
     for lp in params["layers"]:
-        x, _ = layer_fwd(cfg, lp, x, positions, qat=qat, causal=False)
+        x = checkpoint(body, x, lp, use_reentrant=False) if remat else body(x, lp)
     x = L.norm_apply(cfg.norm, params["final_norm"], x)
     if cfg.vocab and "tokens" in batch:
         return x @ params["embed"]["table"].T  # tied MLM head

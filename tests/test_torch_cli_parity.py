@@ -27,9 +27,10 @@ from repro_torch.configs import reduced as t_reduced
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 #: names of the JAX package that the port does not carry, on purpose:
-#: the Pallas entry points and TPU constants, the JAX-only erf, and the
-#: multi-pod half of the dry run (it waits for training and the multi-pod
-#: dry run, ROADMAP's last port item)
+#: the Pallas entry points and TPU constants, the JAX-only erf, the
+#: multi-pod half of the dry run, and the sharded training step with its
+#: sharding rules (both wait for the distributed runtime, ROADMAP's next
+#: port item; the port trains on one device)
 DELIBERATE = {
     "repro.core.igelu": {"jax_erf"},
     "repro.deploy.tiler": {"TPU_GRANULE", "TPU_VMEM_BYTES"},
@@ -42,6 +43,10 @@ DELIBERATE = {
         "batch_shardings", "build", "build_cell", "cache_shardings", "input_specs",
         "list_archs", "make_production_mesh", "opt_state_shardings", "param_shardings",
         "run_cell", "shape_applicable",
+    },
+    "repro.launch.train": {
+        "activation_policy", "batch_shardings", "opt_state_shardings", "param_shardings",
+        "shard_train_fn",
     },
 }
 _SIMPLE = (int, float, str, bool, tuple, frozenset, set, dict, bytes)

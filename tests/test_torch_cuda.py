@@ -637,3 +637,35 @@ def test_decoder_float_chain_and_forward_w8a8_on_the_card_equal_cpu(cuda_device)
         qp = T.quantize_params(cfg, params)
         got = T.forward_w8a8(cfg, to_device(qp, cuda_device), {"tokens": tok.to(cuda_device)})
         assert torch.equal(got.cpu(), T.forward_w8a8(cfg, qp, {"tokens": tok}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qat", [False, True], ids=["plain", "qat"])
+def test_train_steps_on_the_card_equal_cpu(cuda_device, qat, tmp_path):
+    """Two steps of ``make_train_step`` (2 microbatches accumulated in
+    bfloat16, remat) on reduced OLMo, on the card and the CPU from the same
+    params, within chip_smoke.py's stated tolerances; a checkpoint of the
+    card's state restores onto the card bit for bit."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import ShapeCell
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.models import build
+
+    smoke = _chip_smoke()
+    cfg = reduced(get_config("olmo-1b"))
+    api = smoke._with_qat(build(cfg)) if qat else build(cfg)
+    params = api.init_params(0, device="cpu")
+    dcfg = DataConfig(vocab=cfg.vocab, global_batch=4, seq_len=32)
+    batches = [make_batch(cfg, ShapeCell("t", 32, 4, "train"), dcfg, s) for s in range(2)]
+    runs = [smoke._run_steps(torch, api, params, batches, d, microbatches=2, remat=True)
+            for d in (cuda_device, torch.device("cpu"))]
+    smoke._compare_steps(torch, runs[0], runs[1], qat, "reduced olmo-1b")
+    state = {"p": to_device(runs[0][1], cuda_device),
+             "bf16": torch.arange(7, device=cuda_device).to(torch.bfloat16)}
+    ck = Checkpointer(str(tmp_path))
+    ck.save(2, state)
+    back = ck.restore(2, state)
+    assert back["bf16"].is_cuda and back["bf16"].dtype == torch.bfloat16
+    assert torch.equal(back["bf16"], state["bf16"])
+    assert all(torch.equal(a, b) and a.is_cuda for a, b in zip(
+        smoke._state_leaves(back["p"]), smoke._state_leaves(state["p"])))

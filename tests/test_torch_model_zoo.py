@@ -3,7 +3,9 @@ configs, registry and input specs against the JAX package's.
 
 * every arch of the port's ``list_archs()``: one float forward and
   training loss on the reduced config with finite gradients through plain
-  autograd (training itself is not ported), and where the family decodes,
+  autograd (the training step, ``launch.train.make_train_step``, is held
+  against the JAX package's in ``tests/test_torch_train.py``), and where
+  the family decodes,
   ``init_serve_params`` -> ``prefill`` (64 positions) -> ``decode_step``
   with finite logits and a cache of 65 rows;
 * each config, full and reduced, equal to the JAX package's field by

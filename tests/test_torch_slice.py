@@ -125,6 +125,8 @@ def test_import_leaves_no_jax():
         "import repro_torch.deploy.executor, repro_torch.models.transformer\n"
         "import repro_torch.quant.ptq, repro_torch.launch.dryrun, repro_torch.quant.fake_quant\n"
         "import repro_torch.models.model_zoo, repro_torch.kernels, repro_torch.configs\n"
+        "import repro_torch.launch.train, repro_torch.optim, repro_torch.data\n"
+        "import repro_torch.checkpoint, repro_torch.runtime\n"
         "repro_torch.kernels.wrappers()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
@@ -145,7 +147,8 @@ def _imports(path: Path):
 
 
 def test_sources_import_no_jax_or_reference_package():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+             + sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"])
     assert len(files) > 20
     bad = [
         (f.relative_to(ROOT).as_posix(), mod)
