@@ -199,6 +199,21 @@ exit code and no result line):
    must restore onto the card bit for bit.  examples/torch_train_tinylm.py
    --steps 30 in-process, with its own loss-falls assertion; then one step
    of every arch of the registry, reduced, on the card against the CPU.
+15. distributed — the distributed runtime, after ``[train]``'s state is
+   freed (no kernel of ours runs): (a) ``make_host_mesh()`` starts a world
+   of one over NCCL (a 1x1 mesh), and OLMo-1B at full width and depth
+   takes 3 steps through ``launch.train.shard_train_fn`` under
+   ``activation_policy``, from ``[train]``'s params (seed 0) and its first
+   3 batches, against the unsharded step in the same call: losses, grad
+   norms and params equal (else held to ``[train]``'s tolerances, the
+   difference printed), every param and AdamW leaf on the rules'
+   placements, the step times side by side; (b) ``compressed_psum`` on
+   the card over that group, bit-exact with ``compress`` -> ``decompress``
+   on the CPU; (c) 4 spawned ranks sharing the card over gloo (NCCL
+   takes one rank a GPU): ``compressed_psum`` on CUDA tensors bit-exact
+   with the same ranks on CPU tensors, and ``pipelined_apply`` over 4
+   stages (sends staged through the host) within 1e-5 of the layers
+   applied in turn.
 
 It prints the kernels line (JSON), the nvidia-smi line, and last the
 contract line {"ok": true, "device": {...}}.  It exits non-zero, printing
@@ -1483,8 +1498,18 @@ def serve_http(card: str, dev, engine, prompts: list, want: list, launches: dict
     frontend.shutdown(drain=True, timeout=300)
     require(not any(th.is_alive() for th in threads), "http clients did not finish")
     require(not errors, f"http clients failed: {errors}")
-    require(got == want[:n], f"{tag} the HTTP streams differ from the sync engine's")
     stats = engine.stats_snapshot()
+    if got != want[:n]:
+        detail = []
+        for i in range(n):
+            if got[i] != want[i]:
+                (toks, reason), (wtoks, wreason) = got[i], want[i]
+                at = next((j for j, (a, b) in enumerate(zip(toks, wtoks)) if a != b), None)
+                detail.append(f"request {i}: {reason} after {len(toks)} tokens (sync {wreason} "
+                              f"after {len(wtoks)}), first differing token at {at}")
+        log(f"  {tag} HTTP streams {got}\n  sync streams {want[:n]}\n  {stats.summary()}")
+        require(False, f"{tag} the HTTP streams differ from the sync engine's: "
+                f"{'; '.join(detail)} (ci/torch_engine_http_repeat.py repeats this run)")
     check_engine_launches(dev, "ita over HTTP", engine.session.model, counter, stats, launches)
     require(stats_http["requests_completed"] == n, f"/v1/stats: {stats_http}")
     log(f"  {tag} AsyncEngine + ServingFrontend on {card}: {n} concurrent HTTP streams "
@@ -2716,6 +2741,248 @@ def train_phase(torch, card: str, dev, reduced_cfg: bool = False) -> dict[str, i
     return launches
 
 
+#: [distributed] (a): OLMo-1B at full width and depth through
+#: shard_train_fn on a 1x1 NCCL mesh (a world of one) against the unsharded
+#: step, from [train]'s params (seed 0) and its first 3 batches
+DIST = dict(arch="olmo-1b", batch=4, seq=128, steps=3)
+#: (b): compressed_psum's input, the reference test's shape
+DIST_PSUM = (4, 2048)
+#: (c): 4 spawned ranks sharing the card over gloo (NCCL refuses two ranks
+#: on one GPU): compressed_psum on CUDA tensors, bit-exact against the same
+#: 4 ranks on CPU tensors; the 4-stage pipeline on CUDA tensors (its sends
+#: staged through the host: gloo cannot send a CUDA tensor) against the
+#: layers applied in turn on the card.  A 2x2 step of OLMo-1B cut to 2
+#: layers is left out: a rank died of SIGSEGV in it over gloo (ROADMAP.md
+#: section 3, PERF.md section 6)
+DIST_SPAWN = dict(world=4, pipe_d=2048, pipe_batch=16, timeout=300)
+
+
+def _olmo_steps_on(torch, api, params, batches, step_fn, sync):
+    """``step_fn`` over ``batches`` from ``params``: ([(loss, grad_norm)],
+    [ms a step], params, state)."""
+    from repro_torch.optim import adamw
+
+    opt = adamw.init(params)
+    metrics, times = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, b)
+        sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return metrics, times, params, opt
+
+
+def _dist_psum(torch, rank: int, world: int, dev) -> dict:
+    import torch.distributed as dist
+
+    from repro_torch.optim.compression import compressed_psum
+
+    gen = torch.Generator().manual_seed(SEED)
+    g_all = torch.randn(DIST_PSUM, generator=gen) * 0.01
+    err = torch.randn(DIST_PSUM[1:], generator=gen) * 1e-4
+    g = g_all[rank]
+    t0 = time.perf_counter()
+    out_d, err_d = compressed_psum(g.to(dev), err.to(dev), dist.group.WORLD)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    out_h, err_h = compressed_psum(g, err, dist.group.WORLD)
+    want = g_all.sum(0)
+    return {"exact": torch.equal(out_d.cpu(), out_h) and torch.equal(err_d.cpu(), err_h),
+            "device": str(out_d.device), "ms": ms,
+            "rel": float((out_h - want).abs().max() / want.abs().max())}
+
+
+def _dist_pipeline(torch, rank: int, world: int, dev) -> dict:
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.pipeline import pipelined_apply
+
+    d, b = DIST_SPAWN["pipe_d"], DIST_SPAWN["pipe_batch"]
+    gen = torch.Generator().manual_seed(SEED)
+    w = (torch.randn((world, d, d), generator=gen) / d ** 0.5).to(dev)
+    x = torch.randn((b, d), generator=gen).to(dev)
+    pods = make_mesh((world,), ("pod",), device=dev.type)
+    t0 = time.perf_counter()
+    y = pipelined_apply(pods, lambda p, h: torch.tanh(h @ p["w"]), {"w": w}, x, pipe_axis="pod",
+                        n_micro=4)
+    ms = 1e3 * (time.perf_counter() - t0)
+    seq = x
+    for s in range(world):
+        seq = torch.tanh(seq @ w[s])
+    return {"device": str(y.device), "ms": ms, "err": float((y - seq).abs().max())}
+
+
+def _dist_rank(rank: int, world: int, out: str, dev_type: str) -> None:
+    """One rank of [distributed] (c): compressed_psum and the pipeline, its
+    results to a file."""
+    import torch
+
+    from repro_torch import kernels
+
+    dev = torch.device(dev_type)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    wrappers = kernels.wrappers()
+    _counts_zero(wrappers)
+    res = {"psum": _dist_psum(torch, rank, world, dev),
+           "pipeline": _dist_pipeline(torch, rank, world, dev)}
+    res["launches"] = {name: w.launches for name, w in wrappers.items()}
+    torch.save(res, Path(out) / f"rank{rank}.pt")
+
+
+def distributed_phase(torch, card: str, dev, reduced_cfg: bool = False) -> dict[str, int]:
+    """The distributed runtime: (a) OLMo-1B's full train step through
+    shard_train_fn on a world of one over NCCL, equal to the unsharded
+    step, (b) compressed_psum on the card over that group, bit-exact with
+    compress -> decompress on the CPU, (c) 4 spawned ranks on the card over
+    gloo."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.configs import ShapeCell, get_config, reduced
+    from repro_torch.convert import tree_leaves, tree_map
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.launch.mesh import make_host_mesh, spawn
+    from repro_torch.launch.train import make_train_step, shard_train_fn
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+    from repro_torch.optim.compression import BLOCK, compress, compressed_psum, decompress
+    from repro_torch.runtime.activations import activation_policy
+    from repro_torch.runtime.sharding import opt_state_shardings, param_shardings
+
+    on_card = dev.type == "cuda"
+    wrappers = kernels.wrappers()
+    launches = dict.fromkeys(wrappers, 0)
+    _counts_zero(wrappers)
+    t_phase = time.perf_counter()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    if on_card:
+        torch.cuda.empty_cache()
+    # (a) a world of one: make_host_mesh starts it (NCCL on the card)
+    require(not dist.is_initialized(), "a process group is already initialised")
+    mesh = make_host_mesh(device=dev.type)
+    require(tuple(mesh.shape) == (1, 1) and dist.get_world_size() == 1,
+            f"make_host_mesh(): {tuple(mesh.shape)} over {dist.get_world_size()} rank(s)")
+    backend = dist.get_backend()
+    try:
+        cfg = get_config(DIST["arch"])
+        cfg = reduced(cfg) if reduced_cfg else cfg
+        api = build(cfg)
+        dcfg = DataConfig(vocab=cfg.vocab, global_batch=DIST["batch"], seq_len=DIST["seq"])
+        cell = ShapeCell("train", DIST["seq"], DIST["batch"], "train")
+        batches = [_train_batch(torch, make_batch(cfg, cell, dcfg, s), dev)
+                   for s in range(DIST["steps"])]
+        step = make_train_step(api, remat=True)
+        params = api.init_params(SEED, device=None if on_card else dev)
+        want, t_plain, p_plain, _ = _olmo_steps_on(torch, api, params, batches, step, sync)
+        p_plain = tree_map(lambda t: t.cpu(), p_plain)
+        del params
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        params = api.init_params(SEED, device=None if on_card else dev)
+        sstep = shard_train_fn(step, mesh, params, adamw.init(params), batches[0])
+
+        def run(p, o, b):
+            with activation_policy(mesh):
+                return sstep(p, o, b)
+
+        got, t_shard, p_shard, o_shard = _olmo_steps_on(torch, api, params, batches, run, sync)
+        peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+        p_sh = param_shardings(mesh, p_shard)
+        misplaced = [i for i, (t, s) in enumerate(zip(
+            _state_leaves((p_shard, o_shard)),
+            _state_leaves((p_sh, opt_state_shardings(mesh, o_shard, p_sh)))))
+            if tuple(t.placements) != s.placements]
+        require(not misplaced, f"(a): {len(misplaced)} leaves off the rules' placements")
+        leaves = [t.to_local().cpu() for t in tree_leaves(p_shard)]
+        diff = [(a - b).abs() for a, b in zip(leaves, tree_leaves(p_plain))]
+        worst = max(float(d.max()) for d in diff)
+        n = sum(d.numel() for d in diff)
+        share = sum(int((d > TRAIN_TIGHT).sum()) for d in diff) / n
+        exact = got == want and worst == 0.0
+        if not exact:  # hold it to [train]'s tolerances, and say by how much
+            _compare_steps(torch, (got, leaves), (want, list(tree_leaves(p_plain))), False,
+                           "(a) sharded vs unsharded")
+        med_plain, med_shard = statistics.median(t_plain[1:]), statistics.median(t_shard[1:])
+        log(f"  [distributed] (a) {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}; batch "
+            f"{DIST['batch']} x {DIST['seq']}, remat) through shard_train_fn on a "
+            f"{tuple(mesh.shape)} {backend} mesh (world of one), under activation_policy: "
+            f"losses {[round(m[0], 6) for m in got]}, grad norms "
+            f"{[round(m[1], 6) for m in got]}; "
+            + ("bit-exact with the unsharded step (losses, grad norms, every param)"
+               if exact else f"vs the unsharded step: params max |diff| {worst:.3e}, "
+               f"{share:.3e} of {n} beyond {TRAIN_TIGHT}")
+            + f"; every param and AdamW leaf on the rules' placements; step ms sharded: "
+            f"first {t_shard[0]:.3f}, then {', '.join(f'{t:.3f}' for t in t_shard[1:])} "
+            f"(median {med_shard:.3f}); unsharded: first {t_plain[0]:.3f}, then "
+            f"{', '.join(f'{t:.3f}' for t in t_plain[1:])} (median {med_plain:.3f}); DTensor "
+            f"costs {med_shard - med_plain:.3f} ms a step ({med_shard / med_plain:.2f}x); "
+            f"peak {peak:.2f} GB allocated; on {card}")
+        del params, p_shard, o_shard, p_plain, sstep, batches
+        _take(wrappers, launches, dev, {}, "(a) shard_train_fn")
+
+        # (b) compressed_psum over the world of one against the CPU's grid
+        gen = torch.Generator().manual_seed(SEED)
+        g = torch.randn(DIST_PSUM, generator=gen) * 0.01
+        err = torch.randn(DIST_PSUM, generator=gen) * 1e-4
+        out, new_err = compressed_psum(g.to(dev), err.to(dev), dist.group.WORLD)
+        q, scale, want_err = compress(g, err)
+        want_out = decompress(q, scale, g.shape, (-g.numel()) % BLOCK)
+        require(torch.equal(out.cpu(), want_out) and torch.equal(new_err.cpu(), want_err),
+                "(b) compressed_psum on the card differs from compress -> decompress")
+        log(f"  [distributed] (b) compressed_psum {tuple(g.shape)} on {out.device} over the "
+            f"{backend} world of one: bit-exact with compress -> decompress on the CPU "
+            f"(output and error feedback); on {card}")
+        _take(wrappers, launches, dev, {}, "(b) compressed_psum")
+    finally:
+        dist.destroy_process_group()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # (c) 4 ranks sharing the card over gloo
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="dist-", dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        spawn(_dist_rank, DIST_SPAWN["world"], str(work), dev.type,
+              timeout=DIST_SPAWN["timeout"], workdir=work)
+        t_spawn = time.perf_counter() - t0
+        ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
+                 for r in range(DIST_SPAWN["world"])]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for r, res in enumerate(ranks):
+        require(not any(res["launches"].values()), f"(c) rank {r} launched {res['launches']}")
+    ps = [res["psum"] for res in ranks]
+    require(all(p["exact"] and p["device"].startswith(dev.type) for p in ps),
+            f"(c) compressed_psum on {dev.type} tensors differs from the CPU's: {ps}")
+    log(f"  [distributed] (c) compressed_psum {DIST_PSUM} over {DIST_SPAWN['world']} gloo ranks "
+        f"on {ps[0]['device']} tensors: bit-exact with the same ranks on CPU tensors (output "
+        f"and error feedback, every rank); int8 grid error {ps[0]['rel']:.2e} of the largest "
+        f"sum; {max(p['ms'] for p in ps):.3f} ms (host clock, first call); on {card}")
+    pl = [res["pipeline"] for res in ranks]
+    worst = max(p["err"] for p in pl)
+    require(all(p["device"].startswith(dev.type) for p in pl) and worst < 1e-5,
+            f"(c) pipelined_apply vs the layers in turn: {pl}")
+    log(f"  [distributed] (c) pipelined_apply, 4 stages of a {DIST_SPAWN['pipe_d']}-wide tanh "
+        f"layer, batch {DIST_SPAWN['pipe_batch']} in 4 microbatches, over {DIST_SPAWN['world']} "
+        f"gloo ranks on {pl[0]['device']} tensors (sends staged through the host): max |diff| "
+        f"{worst:.2e} against the layers in turn on the card, every rank; "
+        f"{max(p['ms'] for p in pl):.3f} ms (host clock, first call); the ranks in "
+        f"{t_spawn:.1f}s; no kernel of ours launched; on {card}")
+    log(f"  [distributed] phase took {time.perf_counter() - t_phase:.1f}s on {card}")
+    return launches
+
+
 def _state_leaves(tree):
     """Every tensor of a tree of dicts, lists and tuples (NamedTuples
     included), in order."""
@@ -2819,6 +3086,11 @@ def main() -> int:
           "launch.train (timed, traced), the card vs the CPU, a supervised restart, the "
           "tinylm example and one step of every arch")
     for name, n in train_phase(torch, card, dev).items():
+        launches[name] += n
+    phase("[distributed] the distributed runtime: OLMo-1B's full train step through "
+          "shard_train_fn on a 1x1 NCCL mesh vs the unsharded step, compressed_psum on the "
+          "card, and 4 gloo ranks sharing the card")
+    for name, n in distributed_phase(torch, card, dev).items():
         launches[name] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]

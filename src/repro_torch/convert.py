@@ -59,13 +59,13 @@ def _tensor(a, device=None) -> torch.Tensor:
 
 
 #: the reference's scanned stacks of layers (a leading layer axis)
-_STACKED = ("layers", "enc_layers", "dec_layers")
+STACKED = ("layers", "enc_layers", "dec_layers")
 
 
 def is_layer_list(key, value) -> bool:
     """Whether ``value``, found under ``key``, is a list of per-layer dicts
     that the reference keeps as one stack with a leading layer axis."""
-    return (key in _STACKED and isinstance(value, list) and len(value) > 0
+    return (key in STACKED and isinstance(value, list) and len(value) > 0
             and all(isinstance(v, dict) for v in value))
 
 
@@ -103,7 +103,7 @@ def _convert(tree: dict, device) -> dict:
                 "qshared": tree_map(lambda a: _tensor(a, device), tree["qshared"])}
     out = {}
     for key, value in tree.items():
-        if key in _STACKED:
+        if key in STACKED:
             n = np.asarray(next(tree_leaves(value))).shape[0]
             out[key] = [tree_map(lambda a, i=i: _tensor(np.asarray(a)[i], device), value)
                         for i in range(n)]

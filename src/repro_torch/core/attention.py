@@ -30,6 +30,12 @@ import torch
 from repro_torch.core import itamax as im
 from repro_torch.kernels.itamax import itamax
 from repro_torch.quant.qparams import imatmul, make_qparams, requantize
+from repro_torch.runtime.activations import constrain
+
+try:
+    from torch.distributed.tensor import DTensor
+except ImportError:  # a torch built without distributed support
+    DTensor = ()
 
 NEG_MASK_I32 = -(1 << 20)
 
@@ -110,6 +116,9 @@ def attention_flash_i8(
     hkv, sk = k_q.shape[1], k_q.shape[2]
     k_q = _repeat_kv(k_q, h // hkv)
     v_q = _repeat_kv(v_q, h // hkv)
+    # Head-parallel (seq fallback for odd GQA). Only q: K/V's seq dim is
+    # the walked dim — sharding it would gather per KV block.
+    q_q = constrain(q_q, "heads")
     if sk % block_k:
         raise ValueError(f"Sk={sk} is not a multiple of block_k={block_k}")
     dev = q_q.device
@@ -156,6 +165,30 @@ def attention_decode_i8(
 # Float reference -------------------------------------------------------------
 
 
+def _on_local_heads(fn, q, k, v):
+    """``fn(q, k, v)`` on each rank's shard of DTensor inputs.  Attention is
+    independent across batch rows and heads: those dims keep their shards,
+    any other is gathered, and ``fn`` runs on the local tensors, so the
+    result is the unsharded one, element for element.  (Run as DTensor
+    ops, einsum's batched products view the two sharded dims as one, which
+    DTensor 2.11 refuses.)"""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = q.device_mesh
+    keep = [p if isinstance(p, Shard) and p.dim < 2 else Replicate() for p in q.placements]
+
+    def placed(t):
+        if not isinstance(t, DTensor):  # made by the model: the same on every rank
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        return t.redistribute(mesh, keep)
+
+    q, k, v = placed(q), placed(k), placed(v)
+    out = fn(q.to_local(), k.to_local(), v.to_local())
+    shape = (*q.shape[:3], v.shape[3])
+    return DTensor.from_local(out, mesh, keep, shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
 def attention_f32_chunked(
     q: torch.Tensor,  # [B, H, Sq, D]
     k: torch.Tensor,  # [B, Hkv, Sk, D]
@@ -166,6 +199,9 @@ def attention_f32_chunked(
 ) -> torch.Tensor:
     """Float attention one block of ``block_q`` queries at a time (a full
     softmax row per query): never holds the S x S logits at once."""
+    if isinstance(q, DTensor):
+        return _on_local_heads(lambda q, k, v: attention_f32_chunked(
+            q, k, v, causal=causal, block_q=block_q, logit_clip=logit_clip), q, k, v)
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     k = _repeat_kv(k, h // hkv)
@@ -197,6 +233,9 @@ def attention_f32(
 ) -> torch.Tensor:
     """Standard float attention; ``logit_clip`` mimics the int8 logit range
     (+- 127 * ITAMAX_LOGIT_SCALE) for QAT parity with the integer path."""
+    if isinstance(q, DTensor) and mask is None:
+        return _on_local_heads(lambda q, k, v: attention_f32(
+            q, k, v, causal=causal, logit_clip=logit_clip), q, k, v)
     h, hkv = q.shape[1], k.shape[1]
     k = _repeat_kv(k, h // hkv)
     v = _repeat_kv(v, h // hkv)

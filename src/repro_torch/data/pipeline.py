@@ -3,15 +3,20 @@
 The stream is a pure function of (seed, step, process) — drawn by numpy
 from the same generator as the JAX package's, so every batch equals the
 reference's bit for bit — and a restart from a checkpoint replays it
-exactly.  Each process materializes only its shard of the global batch;
-``jax.process_count()`` / ``process_index()`` become the
-``torch.distributed`` world size and rank when a process group is
-initialised, and 1 / 0 otherwise.  Batches stay numpy: the training step
-moves them to the device.
+exactly.  Each host materializes only its shard of the global batch.  A
+JAX process is a host that sees all of its devices; a torch rank drives
+one device, and the ranks of one host share its shard: ``process_count()``
+/ ``process_index()`` count hosts, ``LOCAL_WORLD_SIZE`` ranks a host (as
+``torchrun`` and ``launch.mesh.spawn`` set it; one rank a host where it
+is unset), over the ``torch.distributed`` world when a process group is
+initialised, and 1 / 0 otherwise.  So a mesh of several ranks on one host
+sees the reference's single-host global batch.  Batches stay numpy: the
+training step moves them to the device.
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from dataclasses import dataclass
@@ -22,12 +27,22 @@ import torch.distributed as dist
 from repro_torch.configs.base import ArchConfig, ShapeCell
 
 
+def _ranks_per_host() -> int:
+    return max(int(os.environ.get("LOCAL_WORLD_SIZE", "1")), 1)
+
+
 def process_count() -> int:
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    """Hosts in the world (``jax.process_count()``)."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return 1
+    return max(dist.get_world_size() // _ranks_per_host(), 1)
 
 
 def process_index() -> int:
-    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+    """This rank's host (``jax.process_index()``)."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return 0
+    return dist.get_rank() // _ranks_per_host()
 
 
 @dataclass

@@ -25,7 +25,9 @@ It runs on the card unless ``--device cpu``.  Inputs are drawn from a
 
 The JAX package's dry run also lowers and compiles multi-pod cells
 against TPU meshes (``run_cell``); the port has no counterpart of that
-half, so ``main`` without ``--via-plan`` exits non-zero saying so.
+half yet, so ``main`` without ``--via-plan`` exits non-zero saying so.
+The names that half is built from (the production mesh, the sharding
+rules, the activation policy, the cells) are imported here already.
 """
 
 from __future__ import annotations
@@ -38,9 +40,24 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import (  # noqa: F401
+    ALL_SHAPES,
+    get_config,
+    list_archs,
+    reduced,
+    shape_applicable,
+)
 from repro_torch.convert import to_device
 from repro_torch.deploy import api
+from repro_torch.launch.mesh import make_production_mesh  # noqa: F401
+from repro_torch.models import build, input_specs  # noqa: F401
+from repro_torch.runtime.activations import activation_policy  # noqa: F401
+from repro_torch.runtime.sharding import (  # noqa: F401
+    batch_shardings,
+    cache_shardings,
+    opt_state_shardings,
+    param_shardings,
+)
 
 
 def _sync(device: torch.device) -> None:

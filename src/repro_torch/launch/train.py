@@ -1,5 +1,6 @@
-"""Training driver on one device: a train step with microbatched gradient
-accumulation, remat and AdamW, under checkpoint/restart supervision.
+"""Training driver: a train step with microbatched gradient accumulation,
+remat and AdamW, its sharded form over a mesh (``shard_train_fn``), and
+checkpoint/restart supervision.
 
 Runnable directly (the card unless ``--device cpu``):
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --reduced \\
@@ -7,15 +8,16 @@ Runnable directly (the card unless ``--device cpu``):
 
 The JAX package's step is ``jax.jit``-ed with its params and state donated;
 here the step updates them in place (``optim.adamw.apply``) and returns
-the same tensors.  Its sharded form (``shard_train_fn``, the sharding
-rules, int8 cross-pod gradient compression) comes with the distributed
-runtime.
+the same tensors.  ``shard_train_fn`` runs the same step on DTensors
+placed by the sharding rules (``runtime.sharding``); DTensor propagation
+takes GSPMD's part.
 """
 
 from __future__ import annotations
 
 import argparse
 import functools
+import re
 import time
 
 import torch
@@ -24,6 +26,13 @@ from repro_torch.configs import ShapeCell, get_config, reduced
 from repro_torch.convert import tree_leaves, tree_map
 from repro_torch.models import build
 from repro_torch.optim import adamw
+from repro_torch.runtime.activations import activation_policy  # noqa: F401
+from repro_torch.runtime.sharding import (
+    batch_shardings,
+    device_put,
+    opt_state_shardings,
+    param_shardings,
+)
 
 
 def _value_and_grad(loss_fn, params, batch):
@@ -66,17 +75,15 @@ def make_train_step(
         if microbatches == 1:
             loss, grads = _value_and_grad(loss_with_remat, params, batch)
         else:
-            def split(x):
-                b = x.shape[0]
-                return x.reshape(microbatches, b // microbatches, *x.shape[1:])
-
-            mbs = {k: split(v) for k, v in batch.items()}
+            # microbatch i is rows [i * mb, (i + 1) * mb): the reference's
+            # reshape to [microbatches, mb, ...], taken as slices so that a
+            # batch sharded over more ranks than mb rows splits too
+            mb = next(iter(batch.values())).shape[0] // microbatches
             loss = torch.zeros((), dtype=torch.float32, device=next(tree_leaves(params)).device)
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=grad_accum_dtype,
-                                                   device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=grad_accum_dtype), params)
             for i in range(microbatches):
-                mb_loss, mb_grads = _value_and_grad(loss_with_remat, params,
-                                                    {k: v[i] for k, v in mbs.items()})
+                mb_loss, mb_grads = _value_and_grad(
+                    loss_with_remat, params, {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()})
                 for a, g in zip(tree_leaves(grads), tree_leaves(mb_grads)):
                     a.add_((g / microbatches).to(grad_accum_dtype))
                 loss = loss + mb_loss / microbatches
@@ -86,6 +93,58 @@ def make_train_step(
         return params, opt_state, metrics
 
     return train_step
+
+
+#: DTensor's words for an op it has no sharding rule for
+_UNSHARDABLE = re.compile(r"Operator (\S+) does not have a sharding strategy"
+                          r"|Sharding propagation failed for ([\w.:]+)")
+
+
+def _replicated(t):
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(t, DTensor):
+        return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+    return t
+
+
+def shard_train_fn(train_step, mesh, params, opt_state, batch_spec, *, fsdp: bool = False):
+    """The step on ``mesh``: (params, opt_state, batch) -> (params,
+    opt_state, metrics), as ``train_step``'s.
+
+    Each call places the params by ``param_shardings`` (``fsdp``: ZeRO-3
+    over "data" too), the AdamW state by ``opt_state_shardings`` and the
+    global batch by ``batch_shardings``; leaves already placed so are used
+    as they are, so a step's outputs feed the next without a copy, updated
+    in place.  The metrics come back replicated.  Plain tensors that the
+    model makes itself (positions, masks) count as replicated.  Every rank
+    of the mesh calls the step with the same batch; run it under
+    ``activation_policy(mesh)`` for the models' activation constraints.
+    An op that DTensor cannot shard raises ``NotImplementedError`` naming
+    it: there is no unsharded fallback.
+    """
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    p_sh = param_shardings(mesh, params, fsdp=fsdp)
+    o_sh = opt_state_shardings(mesh, opt_state, p_sh)
+    b_sh = batch_shardings(mesh, batch_spec)
+
+    def step(params, opt_state, batch):
+        params, opt_state = device_put(params, p_sh), device_put(opt_state, o_sh)
+        batch = device_put(batch, b_sh)
+        try:
+            with implicit_replication():
+                params, opt_state, metrics = train_step(params, opt_state, batch)
+        except (NotImplementedError, RuntimeError) as e:
+            op = _UNSHARDABLE.search(str(e))
+            if op is None:
+                raise
+            raise NotImplementedError(
+                f"shard_train_fn: DTensor cannot shard {op.group(1) or op.group(2)} of this "
+                f"step on mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}: {e}") from e
+        return params, opt_state, {k: _replicated(v) for k, v in metrics.items()}
+
+    return step
 
 
 def main(argv=None):

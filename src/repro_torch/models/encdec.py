@@ -24,6 +24,7 @@ from repro_torch.core.attention import (
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import _merge_heads, _split_heads
 from repro_torch.quant.qparams import imatmul
+from repro_torch.runtime.activations import constrain
 
 _S_GAMMA = 1.0 / 64.0
 
@@ -96,10 +97,12 @@ def _attn_f32(cfg: ArchConfig, ap: dict, x: torch.Tensor, kv_src: torch.Tensor,
 def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor, **_) -> torch.Tensor:
     x = frames + params["enc_pos"][: frames.shape[1]].to(frames.dtype)
     for lp in params["enc_layers"]:
+        x = constrain(x, "residual")
         h = L.norm_apply(cfg.norm, lp["norm1"], x)
         x = x + _attn_f32(cfg, lp["attn"], h, h, causal=False)
         h = L.norm_apply(cfg.norm, lp["norm2"], x)
         x = x + L.mlp_forward(lp["mlp"], h, cfg.mlp)
+        x = constrain(x, "residual")
     return L.norm_apply(cfg.norm, params["enc_final"], x)
 
 
@@ -110,12 +113,14 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, **_) -> torch.Tensor:
     x = params["dec_embed"]["table"][tokens] + \
         params["dec_pos"][: tokens.shape[1]].to(memory.dtype)
     for lp in params["dec_layers"]:
+        x = constrain(x, "residual")
         h = L.norm_apply(cfg.norm, lp["norm1"], x)
         x = x + _attn_f32(cfg, lp["self_attn"], h, h, causal=True)
         h = L.norm_apply(cfg.norm, lp["norm_x"], x)
         x = x + _attn_f32(cfg, lp["cross_attn"], h, memory, causal=False)
         h = L.norm_apply(cfg.norm, lp["norm2"], x)
         x = x + L.mlp_forward(lp["mlp"], h, cfg.mlp)
+        x = constrain(x, "residual")
     x = L.norm_apply(cfg.norm, params["dec_final"], x)
     return x @ params["lm_head"]["w"]
 

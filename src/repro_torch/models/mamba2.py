@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.runtime.activations import constrain
 
 D_CONV = 4  # depthwise causal conv width (Mamba default)
 N_GROUPS = 1
@@ -198,7 +199,9 @@ def _head(params: dict, x: torch.Tensor) -> torch.Tensor:
 def forward(cfg: ArchConfig, params: dict, batch: dict, **_) -> torch.Tensor:
     x = params["embed"]["table"][batch["tokens"].long()]
     for bp in params["layers"]:
+        x = constrain(x, "residual")
         x, _, _ = block_forward(cfg, bp, x)
+        x = constrain(x, "residual")
     return _head(params, x)
 
 

@@ -30,6 +30,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.quant_linear import ACT_IDENTITY  # noqa: F401  (the reference's name)
 from repro_torch.models import layers as L
 from repro_torch.quant.qparams import i32, imatmul, make_qparams, requantize
+from repro_torch.runtime.activations import constrain
 
 EP_PAD_TO = 16  # model-axis size of the reference's production mesh
 DISPATCH_GROUP = 1024  # tokens per dispatch group
@@ -163,6 +164,7 @@ def moe_ffn(cfg: ArchConfig, p: dict, h: torch.Tensor):
     grouped, _ = _group(h.reshape(b * s, d), DISPATCH_GROUP)
     dispatch, combine, aux = _route(cfg, p["router"]["w"], grouped.to(torch.float32))
     xe = torch.einsum("gtec,gtd->gecd", dispatch.to(h.dtype), grouped)
+    xe = constrain(xe, "experts")
     ex = p["experts"]
     ge = torch.einsum("gecd,edf->gecf", xe, ex["gate"])
     ue = torch.einsum("gecd,edf->gecf", xe, ex["up"])
@@ -193,6 +195,7 @@ def _experts_w8a8(experts: dict, grouped: torch.Tensor, dispatch: torch.Tensor,
     # float32 product is exact (every int8 is a float32, also under TF32)
     xe = torch.einsum("gtec,gtd->gecd", dispatch.to(torch.float32),
                       grouped.to(torch.float32)).to(torch.int8)
+    xe = constrain(xe, "experts")
     qpa = make_qparams(q.s_act, q.s_w, q.s_act)
     ge = requantize(_expert_mm(xe, experts["gate_q"]), qpa.mult, qpa.shift)
     ue = requantize(_expert_mm(xe, experts["up_q"]), qpa.mult, qpa.shift)

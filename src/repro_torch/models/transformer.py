@@ -22,8 +22,10 @@ per layer (the JAX package stacks them and scans).  A KV cache is
 integer path, float on the float one), with ``len`` a host (CPU) tensor:
 RoPE angles and cache rows are chosen on the host.  The functions here are
 pure: a decode step returns a new cache and leaves its argument as it was.
-The JAX package's sharding constraints (``runtime.activations.constrain``)
-are no-ops outside a sharding policy and have no counterpart on one card.
+The float path calls ``runtime.activations.constrain`` where the JAX
+package does: it returns its argument outside an ``activation_policy``,
+and under one (``launch.train.shard_train_fn``'s mesh) redistributes the
+DTensor activations as the reference constrains its arrays.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.quant.fake_quant import fake_quant_weight
 from repro_torch.quant.qparams import i32, imatmul, make_qparams, requantize
+from repro_torch.runtime.activations import constrain
 
 _S_GAMMA = 1.0 / 64.0  # shape-only norm gain grid (g_q=64 -> gamma=1.0)
 
@@ -127,23 +130,27 @@ def attn_block(cfg: ArchConfig, lp: dict, x: torch.Tensor, positions, *, qat: bo
     """Pre-norm attention with its residual.  ``qat`` puts the projections
     on the int8 weight grid (STE) and clips the logits to the ITAMax range."""
     h = L.norm_apply(cfg.norm, lp["norm1"], x)
+    h = constrain(h, "gathered")  # Megatron-SP boundary: keep TP weights sharded
     wqkv, wo = lp["attn"]["wqkv"], lp["attn"]["wo"]
     if qat:
         wqkv = {**wqkv, "w": fake_quant_weight(wqkv["w"])}
         wo = {**wo, "w": fake_quant_weight(wo["w"])}
     q, k, v = _split_heads(L.linear(wqkv, h), cfg)
+    q = constrain(q, "heads")  # attention internals are head-parallel
     q, k = _rope(cfg, q, k, positions)
     clip = 127 * ITAMAX_LOGIT_SCALE if qat else None
     if q.shape[2] >= _CHUNKED_ATTN_MIN_SEQ:
         out = attention_f32_chunked(q, k, v, causal=causal, logit_clip=clip)
     else:
         out = attention_f32(q, k, v, causal=causal, logit_clip=clip)
+    out = constrain(out, "heads")
     return x + L.linear(wo, _merge_heads(out))
 
 
 def mlp_block(cfg: ArchConfig, lp: dict, x: torch.Tensor):
     """Returns (x, aux_loss): aux is the MoE load-balance term (0 if dense)."""
     h = L.norm_apply(cfg.norm, lp["norm2"], x)
+    h = constrain(h, "gathered")
     if cfg.n_experts:
         out, aux = moe_mod.moe_ffn(cfg, lp["mlp"], h)
         return x + out, aux
@@ -182,7 +189,9 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *, qat: bool = False,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def body(x, lp):
-        return layer_fwd(cfg, lp, x, positions, qat=qat)
+        x = constrain(x, "residual")
+        x, a = layer_fwd(cfg, lp, x, positions, qat=qat)
+        return constrain(x, "residual"), a
 
     for lp in params["layers"]:
         if remat:

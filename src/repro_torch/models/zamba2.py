@@ -23,6 +23,7 @@ from repro_torch.core.attention import (
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as MB
 from repro_torch.models.transformer import _merge_heads, _split_heads
+from repro_torch.runtime.activations import constrain
 
 S_HYB = 0.06  # static activation grid at the float <-> int8 boundary
 QSHARED_WSCALE = 0.01  # static weight grid of the shared attention block
@@ -130,9 +131,11 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, **_) -> torch.Tensor:
     x = params["embed"]["table"][batch["tokens"].long()]
     positions = torch.arange(x.shape[1], device=x.device)
     for i, bp in enumerate(params["layers"]):
+        x = constrain(x, "residual")
         x, _, _ = MB.block_forward(cfg, bp, x)
         if (i + 1) % cfg.attn_every == 0:
             x = _shared_attn_f32(cfg, params["shared"], x, positions)
+        x = constrain(x, "residual")
     return _head(params, x)
 
 

@@ -1,1 +1,1 @@
-from repro_torch.optim import adamw  # noqa: F401
+from repro_torch.optim import adamw, compression  # noqa: F401

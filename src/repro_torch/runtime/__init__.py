@@ -1,1 +1,1 @@
-from repro_torch.runtime import fault  # noqa: F401
+from repro_torch.runtime import elastic, fault, sharding  # noqa: F401

@@ -27,10 +27,8 @@ from repro_torch.configs import reduced as t_reduced
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 #: names of the JAX package that the port does not carry, on purpose:
-#: the Pallas entry points and TPU constants, the JAX-only erf, the
-#: multi-pod half of the dry run, and the sharded training step with its
-#: sharding rules (both wait for the distributed runtime, ROADMAP's next
-#: port item; the port trains on one device)
+#: the Pallas entry points and TPU constants, the JAX-only erf, and the
+#: multi-pod half of the dry run (ROADMAP's next port item)
 DELIBERATE = {
     "repro.core.igelu": {"jax_erf"},
     "repro.deploy.tiler": {"TPU_GRANULE", "TPU_VMEM_BYTES"},
@@ -38,16 +36,7 @@ DELIBERATE = {
     "repro.kernels.int8_gemm.ops": {"int8_gemm_pallas"},
     "repro.kernels.ita_attention.ops": {"ita_attention_pallas"},
     "repro.kernels.itamax.ops": {"itamax_pallas"},
-    "repro.launch.dryrun": {
-        "ALL_SHAPES", "MICROBATCHES", "activation_policy", "analyze_hlo",
-        "batch_shardings", "build", "build_cell", "cache_shardings", "input_specs",
-        "list_archs", "make_production_mesh", "opt_state_shardings", "param_shardings",
-        "run_cell", "shape_applicable",
-    },
-    "repro.launch.train": {
-        "activation_policy", "batch_shardings", "opt_state_shardings", "param_shardings",
-        "shard_train_fn",
-    },
+    "repro.launch.dryrun": {"MICROBATCHES", "analyze_hlo", "build_cell", "run_cell"},
 }
 _SIMPLE = (int, float, str, bool, tuple, frozenset, set, dict, bytes)
 

@@ -669,3 +669,54 @@ def test_train_steps_on_the_card_equal_cpu(cuda_device, qat, tmp_path):
     assert torch.equal(back["bf16"], state["bf16"])
     assert all(torch.equal(a, b) and a.is_cuda for a, b in zip(
         smoke._state_leaves(back["p"]), smoke._state_leaves(state["p"])))
+
+
+@pytest.mark.cuda
+def test_shard_train_fn_on_a_world_of_one_equals_the_unsharded_step(cuda_device):
+    """chip_smoke.py ``[distributed]`` (a) at 2 layers: OLMo-1B at full
+    width through ``shard_train_fn`` on the 1x1 NCCL mesh that
+    ``make_host_mesh()`` starts, under ``activation_policy``, against the
+    unsharded step on the card from the same params and batches, within
+    ``[train]``'s tolerances; every leaf on the rules' placements."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeCell
+    from repro_torch.convert import tree_leaves, tree_map
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import make_train_step, shard_train_fn
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.activations import activation_policy
+    from repro_torch.runtime.sharding import param_shardings
+
+    smoke = _chip_smoke()
+    cfg = get_config("olmo-1b").replace(n_layers=2)
+    api = build(cfg)
+    p0 = api.init_params(0, device="cpu")
+    dcfg = DataConfig(vocab=cfg.vocab, global_batch=4, seq_len=64)
+    batches = [smoke._train_batch(torch, make_batch(cfg, ShapeCell("t", 64, 4, "train"), dcfg, s),
+                                  cuda_device) for s in range(2)]
+    step = make_train_step(api, remat=True)
+    sync = torch.cuda.synchronize
+    want, _, pw, _ = smoke._olmo_steps_on(torch, api, tree_map(lambda t: t.to(cuda_device), p0),
+                                          batches, step, sync)
+    assert not dist.is_initialized()
+    mesh = make_host_mesh()
+    try:
+        assert tuple(mesh.shape) == (1, 1) and dist.get_backend() == "nccl"
+        ps = tree_map(lambda t: t.to(cuda_device), p0)
+        sstep = shard_train_fn(step, mesh, ps, adamw.init(ps), batches[0])
+
+        def run(p, o, b):
+            with activation_policy(mesh):
+                return sstep(p, o, b)
+
+        got, _, pg, _ = smoke._olmo_steps_on(torch, api, ps, batches, run, sync)
+        sh = param_shardings(mesh, pg)
+        assert all(tuple(t.placements) == s.placements
+                   for t, s in zip(tree_leaves(pg), tree_leaves(sh)))
+        smoke._compare_steps(torch, (got, [t.to_local() for t in tree_leaves(pg)]),
+                             (want, list(tree_leaves(pw))), False, "world of one")
+    finally:
+        dist.destroy_process_group()

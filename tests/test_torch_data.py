@@ -5,7 +5,9 @@ process))`` in both packages, so they must be equal bit for bit, for every
 arch of the registry (its reduced config), every family's inputs, and any
 step.  The process index comes from ``torch.distributed`` in the port and
 from ``jax.process_index()`` in the reference: a shard of a two-process
-run is checked with both faked.
+run is checked with both faked.  A JAX process is a host; torch ranks on
+one host (``LOCAL_WORLD_SIZE`` of them) share its shard, so four ranks of
+one host see the reference's single-process global batch, for every arch.
 """
 
 import numpy as np
@@ -68,6 +70,40 @@ def test_process_shard_equals_reference(monkeypatch):
     assert got["tokens"].shape == (2, 64)
     assert all(np.array_equal(got[k], want[k]) for k in want)
     assert T._host_slice(4) == (2, 2)
+
+
+def _fake_world(monkeypatch, world, rank, per_host):
+    monkeypatch.setattr(T.dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(T.dist, "get_world_size", lambda: world)
+    monkeypatch.setattr(T.dist, "get_rank", lambda: rank)
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", str(per_host))
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_ranks_of_one_host_see_the_reference_global_batch(monkeypatch, arch):
+    """A 2x2 mesh on one host: each of the 4 ranks draws the reference's
+    single-process batch (the mesh places it)."""
+    (cfg, cell, jd), (tcfg, _, td) = _pair(arch)
+    want = J.make_batch(cfg, cell, jd, 3)
+    for rank in range(4):
+        _fake_world(monkeypatch, 4, rank, 4)
+        assert (T.process_count(), T.process_index()) == (1, 0)
+        got = make_batch(tcfg, cell, td, 3)
+        assert all(np.array_equal(got[k], want[k]) for k in want), (arch, rank)
+
+
+def test_two_hosts_of_two_ranks_shard_as_two_processes(monkeypatch):
+    """World 4, 2 ranks a host: rank 3 is on host 1 of 2, and draws the
+    reference's second process's half."""
+    (cfg, cell, jd), (tcfg, _, td) = _pair("olmo-1b")
+    monkeypatch.setattr(J.jax, "process_count", lambda: 2)
+    monkeypatch.setattr(J.jax, "process_index", lambda: 1)
+    _fake_world(monkeypatch, 4, 3, 2)
+    assert (T.process_count(), T.process_index()) == (2, 1)
+    want = J.make_batch(cfg, cell, jd, 5)
+    got = make_batch(tcfg, cell, td, 5)
+    assert got["tokens"].shape == (2, 64)
+    assert all(np.array_equal(got[k], want[k]) for k in want)
 
 
 def test_single_process_without_a_group():

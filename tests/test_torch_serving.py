@@ -758,3 +758,19 @@ def test_serving_modules_import_no_jax():
                          timeout=120, env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
     assert res.returncode == 0, res.stderr
     assert json.loads(res.stdout) == []
+
+
+def test_http_repeat_tool_replays_a_run(tmp_path):
+    """``ci/torch_engine_http_repeat.py`` on the CPU at reduced width: the
+    HTTP streams equal the synchronous engine's, and the synchronous replay
+    of the run's admissions gives the same dispatches and streams."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run(
+        [sys.executable, str(ROOT / "ci" / "torch_engine_http_repeat.py"), "--device", "cpu",
+         "--reduced", "--budget", "0", "--replay-first", "--out", str(tmp_path)],
+        capture_output=True, text=True, timeout=240, env=env, cwd=ROOT)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "run 0: 0 of 8 streams differ" in res.stdout, res.stdout
+    assert "streams differing [], the same dispatches True" in res.stdout, res.stdout
+    assert "http repeat on cpu: 1 runs, 0 differed" in res.stdout, res.stdout
+    assert not list(tmp_path.iterdir())

@@ -127,6 +127,9 @@ def test_import_leaves_no_jax():
         "import repro_torch.models.model_zoo, repro_torch.kernels, repro_torch.configs\n"
         "import repro_torch.launch.train, repro_torch.optim, repro_torch.data\n"
         "import repro_torch.checkpoint, repro_torch.runtime\n"
+        "import repro_torch.runtime.sharding, repro_torch.runtime.activations\n"
+        "import repro_torch.runtime.pipeline, repro_torch.runtime.elastic\n"
+        "import repro_torch.optim.compression, repro_torch.launch.mesh\n"
         "repro_torch.kernels.wrappers()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"

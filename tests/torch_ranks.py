@@ -1,0 +1,292 @@
+"""What each rank runs for ``test_torch_distributed.py``.
+
+``launch.mesh.spawn`` starts 8 ranks (gloo, on the CPU) and imports this
+module by name in each of them, so it imports no JAX: the reference's
+side runs in its own process, and the results meet in the test.  All 8
+take part in the elastic 8 -> 4 re-mesh and build every mesh (a mesh's
+groups are made by every rank of the world); then ranks 0-3 ("A") and
+4-7 ("B") each run their half of the checks on meshes of their own four
+ranks, at the same time.  Ranks 0 and 4 write what their half saw to
+``<out>/rank<r>.pt``.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+
+#: (kind, shapes) of ``constrain``'s cases: each kind where it fits the
+#: 2x2 mesh and where it does not
+CONSTRAIN_CASES = [
+    ("residual", (4, 8, 16)), ("residual", (3, 5, 16)), ("residual", (4, 5, 16)),
+    ("gathered", (4, 8, 16)), ("gathered", (3, 8, 16)),
+    ("heads", (4, 4, 8, 16)), ("heads", (4, 3, 8, 16)), ("heads", (3, 3, 5, 16)),
+    ("ssd", (4, 8, 4, 16)), ("ssd", (3, 8, 3, 16)),
+    ("ssd_l", (4, 2, 4, 8, 8)), ("ssd_l", (3, 2, 3, 8, 8)),
+    ("tokens", (4, 8)), ("tokens", (3, 8)),
+    ("experts", (4, 4, 8, 16)), ("experts", (3, 3, 8, 16)),
+    ("residual", (4, 8)), ("unknown", (4, 8, 16)),
+]
+#: the activation policies the cases run under: (sequence_parallel, gather_boundary)
+POLICIES = [(True, True), (False, True), (True, False)]
+
+#: the sharded OLMo-1B steps: (mesh, fsdp, microbatches, under activation_policy)
+OLMO_STEPS = [((2, 2), True, 1, True), ((4, 1), True, 1, False), ((2, 2), True, 2, True)]
+#: which half runs which step and arch (by their cost on a CPU, about
+#: 35 s each: a family's second arch is cheap where the first has taught
+#: DTensor its ops)
+HALF_B_STEPS = [((4, 1), True, 1, False)]
+HALF_B_ARCHS = ["qwen1.5-110b", "mistral-large-123b", "stablelm-1.6b", "zamba2-2.7b",
+                "mamba2-370m", "seamless-m4t-large-v2", "llava-next-34b"]
+OLMO_BATCH, OLMO_SEQ, OLMO_STEPS_N = 4, 32, 2
+ARCH_BATCH, ARCH_SEQ = 4, 16
+
+
+def _placed_as_rules(tree, shardings) -> list[str]:
+    """Paths of the DTensor leaves whose placements differ from their
+    ``NamedSharding``'s."""
+    from repro_torch.runtime.sharding import _map_with_path, _map2
+
+    bad = []
+    flags = _map2(lambda t, s: tuple(t.placements) == s.placements, tree, shardings)
+    _map_with_path(lambda p, ok: ok or bad.append("/".join(map(str, p))), flags)
+    return bad
+
+
+def _olmo_steps(mesh, params, batches, fsdp, microbatches, policy):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.convert import tree_map
+    from repro_torch.launch.train import make_train_step, shard_train_fn
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.activations import activation_policy
+    from repro_torch.runtime.sharding import gather, opt_state_shardings, param_shardings
+
+    api = build(reduced(get_config("olmo-1b")))
+    p = tree_map(torch.clone, params)
+    o = adamw.init(p)
+    step = shard_train_fn(make_train_step(api, microbatches=microbatches, remat=True), mesh, p,
+                          o, batches[0], fsdp=fsdp)
+    metrics = []
+    t0 = time.perf_counter()
+    for b in batches:
+        if policy:
+            with activation_policy(mesh):
+                p, o, m = step(p, o, b)
+        else:
+            p, o, m = step(p, o, b)
+        metrics.append((float(m["loss"]), float(m["grad_norm"]),
+                        [repr(pl) for pl in m["loss"].placements]))
+    seconds = time.perf_counter() - t0
+    p_sh = param_shardings(mesh, p, fsdp=fsdp)
+    bad = _placed_as_rules(p, p_sh) + _placed_as_rules(o, opt_state_shardings(mesh, o, p_sh))
+    return {"metrics": metrics, "params": gather(p), "misplaced": bad, "seconds": seconds,
+            "step": int(o.step.full_tensor())}
+
+
+def _arch_step(mesh, arch, sequence_parallel: bool = True):
+    """One step of a reduced arch, sharded on ``mesh`` (fsdp, under the
+    policy) and unsharded, from the same params: the worst differences."""
+    from repro_torch.configs import ShapeCell, get_config, reduced
+    from repro_torch.convert import tree_leaves, tree_map
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.launch.train import make_train_step, shard_train_fn
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.activations import activation_policy
+    from repro_torch.runtime.sharding import gather
+
+    cfg = reduced(get_config(arch))
+    api = build(cfg)
+    p0 = api.init_params(0, device="cpu")
+    dcfg = DataConfig(vocab=max(cfg.vocab, 2), global_batch=ARCH_BATCH, seq_len=ARCH_SEQ)
+    batch = {k: torch.from_numpy(v) for k, v in make_batch(
+        cfg, ShapeCell("t", ARCH_SEQ, ARCH_BATCH, "train"), dcfg, 0).items()}
+    step = make_train_step(api, remat=False)
+    pr = tree_map(torch.clone, p0)
+    _, _, mr = step(pr, adamw.init(pr), batch)
+    ps = tree_map(torch.clone, p0)
+    os_ = adamw.init(ps)
+    sstep = shard_train_fn(step, mesh, ps, os_, batch, fsdp=True)
+    try:
+        with activation_policy(mesh, sequence_parallel=sequence_parallel):
+            ps, os_, ms = sstep(ps, os_, batch)
+    except NotImplementedError as e:
+        return {"refused": str(e)}
+    diff = [(a - b).abs() for a, b in zip(tree_leaves(gather(ps)), tree_leaves(pr))]
+    n = sum(d.numel() for d in diff)
+    return {"loss": (float(ms["loss"]), float(mr["loss"])),
+            "grad_norm": (float(ms["grad_norm"]), float(mr["grad_norm"])),
+            "worst": max(float(d.max()) for d in diff),
+            "share": sum(int((d > 1e-5).sum()) for d in diff) / n}
+
+
+def _custom_op_step(mesh):
+    """shard_train_fn on a step whose loss runs an op DTensor has no rule for."""
+    from repro_torch.launch.train import shard_train_fn
+    from repro_torch.optim import adamw
+
+    @torch.library.custom_op("repro_torch_test::twice", mutates_args=())
+    def twice(x: torch.Tensor) -> torch.Tensor:
+        return x * 2
+
+    def step(params, opt_state, batch):
+        return params, opt_state, {"loss": twice(params["w"]).sum()}
+
+    p = {"w": torch.ones(4, 4)}
+    try:
+        shard_train_fn(step, mesh, p, adamw.init(p), {"x": torch.zeros(4, 2)})(
+            p, adamw.init(p), {"x": torch.zeros(4, 2)})
+    except NotImplementedError as e:
+        return str(e)
+    return None
+
+
+def _four_rank_checks(rank: int, inputs: dict, pods, mesh) -> dict:
+    """compressed_psum, the pipeline, the FSDP placement and constrain, on
+    ranks 0-3."""
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+
+    from repro_torch.optim.compression import compressed_psum
+    from repro_torch.runtime.activations import activation_policy, constrain
+    from repro_torch.runtime.pipeline import pipelined_apply
+    from repro_torch.runtime.sharding import device_put, param_shardings
+
+    res: dict = {}
+    group = pods.get_group("pod")
+
+    # compressed_psum over a group of 4, and by mesh-dim name under a policy
+    g, err = inputs["g"][rank], torch.zeros_like(inputs["g"][rank])
+    s, new_err = compressed_psum(g, err, group)
+    with activation_policy(pods):
+        s2, e2 = compressed_psum(g, err, "pod")
+    assert torch.equal(s, s2) and torch.equal(new_err, e2)
+    outs = [torch.empty_like(s) for _ in range(4)]
+    errs = [torch.empty_like(new_err) for _ in range(4)]
+    dist.all_gather(outs, s, group=group)
+    dist.all_gather(errs, new_err, group=group)
+    res["psum"] = (torch.stack(outs), torch.stack(errs))
+
+    # the GPipe pipeline: 4 stages of one tanh-linear layer
+    y = pipelined_apply(pods, lambda p, x: torch.tanh(x @ p["w"]), {"w": inputs["w"]},
+                        inputs["x"], pipe_axis="pod", n_micro=4)
+    ys = [torch.empty_like(y) for _ in range(4)]
+    dist.all_gather(ys, y, group=group)
+    res["pipeline"] = torch.stack(ys)
+
+    # FSDP placement of a layer leaf on 2x2
+    params = {"layers": [{"attn": {"wqkv": {"w": torch.zeros(8, 16)}}}]}
+    sh = param_shardings(mesh, params, fsdp=True)
+    placed = device_put(params, sh)["layers"][0]["attn"]["wqkv"]["w"]
+    res["fsdp"] = (sh["layers"][0]["attn"]["wqkv"]["w"].spec,
+                   tuple(placed.to_local().shape), [repr(p) for p in placed.placements])
+
+    # constrain's placements for every kind, a DTensor and a plain tensor each
+    cases = {}
+    for pol in POLICIES:
+        for kind, shape in CONSTRAIN_CASES:
+            x = torch.arange(float(torch.Size(shape).numel())).reshape(shape)
+            xd = distribute_tensor(x, mesh, [Replicate(), Replicate()])
+            with activation_policy(mesh, sequence_parallel=pol[0], gather_boundary=pol[1]):
+                got = [constrain(xd, kind), constrain(x, kind)]
+            same = [r is a for r, a in zip(got, (xd, x))]
+            assert same[0] == same[1], (kind, shape)
+            assert all(torch.equal(r.full_tensor() if isinstance(r, DTensor) else r, x)
+                       for r in got)
+            cases[(pol, kind, shape)] = None if same[0] else tuple(got[0].placements)
+    res["constrain"] = cases
+    res["custom_op"] = _custom_op_step(mesh)
+    return res
+
+
+def world8(rank: int, world: int, out: str, archs: list) -> None:
+    from repro_torch.data import pipeline as data_pipeline
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh, make_production_mesh
+    from repro_torch.runtime import elastic
+    from repro_torch.runtime.sharding import device_put, gather, param_shardings
+
+    out = Path(out)
+    res: dict = {"hosts": (data_pipeline.process_count(), data_pipeline.process_index())}
+
+    # the elastic re-mesh: 8 ranks as (4, 2), then the first 4 as (2, 2)
+    want = torch.arange(64.0).reshape(8, 8)
+    mesh8 = elastic.remesh(range(8), 2, device="cpu")
+    params = {"layers": {"mlp": {"up": {"w": want.clone()}}}}
+    p8 = device_put(params, param_shardings(mesh8, params))
+    mesh4 = elastic.remesh(range(4), 2, device="cpu")  # lose half the fleet
+    p4 = elastic.reshard_state(p8, mesh4)
+    w8, w4 = p8["layers"]["mlp"]["up"]["w"], p4["layers"]["mlp"]["up"]["w"]
+    res["mesh"] = (tuple(mesh8.shape), tuple(mesh4.shape), mesh4.mesh.flatten().tolist())
+    res["local"] = (tuple(w8.to_local().shape), tuple(w4.to_local().shape))
+    res["placements"] = [repr(p) for p in w4.placements]
+    if rank < 4:
+        res["values"] = gather(p4)["layers"]["mlp"]["up"]["w"]
+    res["host_mesh"] = [tuple(make_host_mesh(d, m, device="cpu").shape)
+                        for d, m in ((16, 1), (2, 8), (2, 2), (1, 1))]
+    try:
+        make_production_mesh(device="cpu")
+        res["production"] = None
+    except ValueError as e:
+        res["production"] = str(e)
+
+    # every mesh of both halves, built by all 8 ranks
+    names = ("data", "model")
+    meshes = {(half, shape): make_mesh(shape, names, device="cpu", ranks=range(lo, lo + 4))
+              for half, lo in (("A", 0), ("B", 4)) for shape in ((2, 2), (4, 1))}
+    pods = make_mesh((4,), ("pod",), device="cpu", ranks=range(4))
+    half = "A" if rank < 4 else "B"
+    if half == "A":
+        inputs = torch.load(out / "inputs.pt")
+        res.update(_four_rank_checks(rank, inputs, pods, meshes[("A", (2, 2))]))
+    else:
+        inputs = torch.load(out / "inputs.pt")
+    for case in OLMO_STEPS:
+        if (case in HALF_B_STEPS) == (half == "B"):
+            res[("olmo", *case)] = _olmo_steps(meshes[(half, case[0])], inputs["olmo"],
+                                               inputs["batches"], *case[1:])
+    res["archs"] = {}
+    for arch in archs:
+        if (arch in HALF_B_ARCHS) == (half == "B"):
+            t0 = time.perf_counter()
+            res["archs"][arch] = _arch_step(meshes[(half, (2, 2))], arch)
+            res["archs"][arch]["seconds"] = time.perf_counter() - t0
+    if rank in (0, 4):
+        torch.save(res, out / f"rank{rank}.pt")
+
+
+def fail_on(rank: int, world: int, bad: int) -> None:
+    """Rank ``bad`` raises; the others wait at a barrier it never reaches."""
+    if rank == bad:
+        raise RuntimeError(f"rank {rank} fails on purpose")
+    dist.barrier()
+
+
+def _sweep(rank: int, world: int, archs: list, sequence_parallel: bool) -> None:
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(2, 2, device="cpu")
+    for arch in archs:
+        t0 = time.perf_counter()
+        res = _arch_step(mesh, arch, sequence_parallel)
+        if rank == 0:
+            print(f"{arch}: {time.perf_counter() - t0:.1f}s {res}", flush=True)
+
+
+if __name__ == "__main__":
+    # Every arch's sharded step on a 2x2 mesh of 4 CPU gloo ranks with this
+    # machine's torch, against the unsharded step: which ops its DTensor
+    # refuses.  PYTHONPATH=src python tests/torch_ranks.py [--no-sp]
+    # (--no-sp: the policy without sequence parallelism)
+    import tempfile
+
+    from repro_torch.configs import list_archs
+    from repro_torch.launch.mesh import spawn
+
+    sp = "--no-sp" not in sys.argv[1:]
+    print(f"torch {torch.__version__}, sequence_parallel={sp}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn(_sweep, 4, list_archs(), sp, workdir=tmp, timeout=600)
