@@ -215,6 +215,19 @@ exit code and no result line):
    stages (sends staged through the host) within 1e-5 of the layers
    applied in turn.
 
+16. multipod — the multi-pod dry run (no kernel of ours runs): (ii)
+   ``[distributed]`` (a)'s step recorded by ``deploy.hlo_analysis`` in a
+   fake world of one (a child process, ``FakeTensorMode`` on the card's
+   device) and for real on the card over a new NCCL world of one: flops,
+   every op's count and the argument bytes equal, and the card's peak
+   allocation within ``MULTIPOD_PEAK_RATIO`` of the predicted peak; (i)
+   ``python -m repro_torch.launch.dryrun --arch A --shape S [--multi-pod
+   on]`` for each of ``MULTIPOD_CELLS`` in a fake 256- or 512-rank world
+   of its own (``MULTIPOD_JOBS`` at a time; ``MULTIPOD_EARLY``, the
+   costliest, started niced when the script starts), every record ``ok``,
+   its flops, collective bytes by op, argument and temp bytes a rank and
+   host seconds printed.
+
 It prints the kernels line (JSON), the nvidia-smi line, and last the
 contract line {"ok": true, "device": {...}}.  It exits non-zero, printing
 no result, when no CUDA device is available or when it is not run from a
@@ -2983,6 +2996,235 @@ def distributed_phase(torch, card: str, dev, reduced_cfg: bool = False) -> dict[
     return launches
 
 
+#: [multipod] (i): multi-pod dry-run cells, each ``python -m
+#: repro_torch.launch.dryrun --arch A --shape S [--multi-pod on]`` in a fake
+#: world of its own on the card's device type: each group of open fault 1
+#: (dense, MoE, SSM, VLM), GQA heads over 16 model ranks (llava 56/8,
+#: granite 24/8), the int8 products on DTensors (OLMo-1B prefill and
+#: decode), the sequence-sharded cache (zamba2 long_500k) and one cell of
+#: the two-pod mesh; run MULTIPOD_JOBS at a time
+MULTIPOD_CELLS = [("olmo-1b", "train_4k", False), ("qwen2-moe-a2.7b", "train_4k", False),
+                  ("mamba2-370m", "train_4k", False), ("llava-next-34b", "train_4k", False),
+                  ("granite-moe-3b-a800m", "train_4k", False), ("olmo-1b", "prefill_32k", False),
+                  ("olmo-1b", "decode_32k", False), ("mamba2-370m", "decode_32k", True)]
+MULTIPOD_JOBS = 8
+#: the costliest cell (4-5 min of host time: 1024 KV blocks at each of 9
+#: sites) starts as the script does, at the lowest CPU priority, in a
+#: child of its own (host work only: its tensors are fake), and
+#: [multipod] collects its record
+MULTIPOD_EARLY = ("zamba2-2.7b", "long_500k", False)
+MULTIPOD_DIR = ROOT / "build" / "multipod"
+
+
+def start_early_cell(dev_type: str):
+    """``MULTIPOD_EARLY``'s CLI child, niced; [multipod] waits for it, and
+    it is stopped at exit if the script ends first."""
+    import atexit
+    import os
+
+    arch, shape, pod = MULTIPOD_EARLY
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    child = subprocess.Popen(
+        ["nice", "-n", "19", sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--multi-pod", "on" if pod else "off", "--out-dir", str(MULTIPOD_DIR),
+         "--device", dev_type],
+        cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+
+    def stop():
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+
+    atexit.register(stop)
+    return child
+
+
+#: [multipod] (ii): [distributed] (a)'s step (OLMo-1B, float32, 4 x 128,
+#: remat) on a 1x1 mesh, recorded by deploy.hlo_analysis once in a fake
+#: world of one (a child process) and once for real on the card; the
+#: real step's peak allocation over the predicted one must fall in this
+#: range (PERF.md section 6 holds the prediction)
+MULTIPOD_PEAK_RATIO = (0.95, 1.10)
+
+
+def _tie_step(torch, dev_type: str, fake: bool) -> dict:
+    """[distributed] (a)'s step on a 1x1 mesh of the running world, its
+    arguments placed first, one call recorded: the analysis, the argument
+    bytes and (for real) the device's peak allocation."""
+    import contextlib
+
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.deploy.hlo_analysis import OpRecorder, analyze_hlo
+    from repro_torch.launch.dryrun import fake_mode, place
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import make_train_step, shard_train_fn
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.activations import activation_policy
+    from repro_torch.runtime.sharding import batch_shardings, opt_state_shardings, param_shardings
+
+    cfg = get_config(DIST["arch"])
+    api = build(cfg)
+    mesh = make_mesh((1, 1), ("data", "model"), device=dev_type)
+    cell = ShapeCell("train", DIST["seq"], DIST["batch"], "train")
+    dcfg = DataConfig(vocab=cfg.vocab, global_batch=DIST["batch"], seq_len=DIST["seq"])
+    host = make_batch(cfg, cell, dcfg, 0)
+    with fake_mode() if fake else contextlib.nullcontext():
+        params = api.init_params(SEED, device=dev_type)
+        opt = adamw.init(params)
+        batch = {k: torch.from_numpy(v).to(dev_type) for k, v in host.items()}
+        p_sh = param_shardings(mesh, params)
+        params = place(params, p_sh)
+        opt = place(opt, opt_state_shardings(mesh, opt, p_sh))
+        batch = place(batch, batch_shardings(mesh, batch))
+        step = shard_train_fn(make_train_step(api, remat=True), mesh, params, opt, batch)
+        on_card = not fake and dev_type == "cuda"
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+        ops = OpRecorder(dev_type)
+        arg_bytes = ops.track((params, opt, batch))
+        with activation_policy(mesh), ops:
+            step(params, opt, batch)
+        res = analyze_hlo(ops)
+        res["argument_bytes"] = arg_bytes
+        if on_card:
+            torch.cuda.synchronize()
+            res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+            res["allocated_before"] = before
+    return res
+
+
+def _tie_child(dev_type: str) -> None:
+    """The fake side of [multipod] (ii), in a process of its own (one
+    process holds one world): prints its analysis as JSON."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import init_fake_world
+
+    init_fake_world(1)
+    print("TIE_JSON " + json.dumps(_tie_step(torch, dev_type, fake=True)))
+
+
+def multipod_phase(torch, card: str, dev, early=None) -> dict[str, int]:
+    """The multi-pod dry run: (i) cells of the reference's grid through
+    the CLI in fake 256 / 512-rank worlds, each ``ok``; (ii) the analysis
+    of [distributed] (a)'s step in a fake world of one equal, op for op,
+    to the same step recorded for real on the card, and its predicted peak
+    beside the card's."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.launch.dryrun import run_grid
+    from repro_torch.launch.mesh import make_host_mesh
+
+    import threading
+
+    wrappers = kernels.wrappers()
+    launches = dict.fromkeys(wrappers, 0)
+    _counts_zero(wrappers)
+    t_phase = time.perf_counter()
+
+    # (i) the cells, MULTIPOD_JOBS at a time, each in a child of its own,
+    # while (ii) runs here
+    grid: dict = {}
+
+    def cells():
+        t0 = time.perf_counter()
+        try:
+            grid["recs"] = run_grid(MULTIPOD_CELLS, out_dir=str(MULTIPOD_DIR), device=dev.type,
+                                    jobs=MULTIPOD_JOBS)
+        except Exception as e:  # noqa: BLE001 — reported below, as a failed phase
+            grid["error"] = e
+        grid["wall"] = time.perf_counter() - t0
+
+    runner = threading.Thread(target=cells)
+    runner.start()
+
+    try:
+        # (ii) the fake world of one in a child, the real world of one here
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        child = subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke._tie_child({dev.type!r})"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            require(not dist.is_initialized(), "a process group is already initialised")
+            make_host_mesh(device=dev.type)
+            try:
+                real = _tie_step(torch, dev.type, fake=False)
+            finally:
+                dist.destroy_process_group()
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+            out, err = child.communicate(timeout=600)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        line = [ln for ln in out.splitlines() if ln.startswith("TIE_JSON ")]
+        require(child.returncode == 0 and bool(line),
+                f"(ii) the fake world's step failed: {err[-2000:]}")
+        fake = json.loads(line[0][len("TIE_JSON "):])
+        diff = {k: (fake["op_counts"].get(k), real["op_counts"].get(k))
+                for k in set(fake["op_counts"]) | set(real["op_counts"])
+                if fake["op_counts"].get(k) != real["op_counts"].get(k)}
+        require(fake["flops"] == real["flops"] and not diff,
+                f"(ii) fake vs real: flops {fake['flops']} vs {real['flops']}; op counts that "
+                f"differ (fake, real): {diff}")
+        require(fake["argument_bytes"] == real["argument_bytes"],
+                f"(ii) argument bytes {fake['argument_bytes']} vs {real['argument_bytes']}")
+        peak = "not measured (no card)"
+        if dev.type == "cuda":
+            others = real["allocated_before"] - real["argument_bytes"]
+            ratio = (real["max_memory_allocated"] - others) / fake["peak_bytes"]
+            require(MULTIPOD_PEAK_RATIO[0] <= ratio <= MULTIPOD_PEAK_RATIO[1],
+                    f"(ii) the card's peak over the predicted one: {ratio:.4f}")
+            peak = (f"max_memory_allocated {real['max_memory_allocated'] / 1e9:.3f} GB of "
+                    f"which {others / 1e9:.3f} GB were not the step's (allocated before it): "
+                    f"ratio {ratio:.4f} (predicted {MULTIPOD_PEAK_RATIO[0]}-"
+                    f"{MULTIPOD_PEAK_RATIO[1]})")
+        log(f"  [multipod] (ii) {DIST['arch']} step ({DIST['batch']} x {DIST['seq']}, float32, "
+            f"remat) on a 1x1 mesh: a fake world of one and the {dev.type} agree op for op: "
+            f"{real['n_computations']} local ops of {len(real['op_counts'])} kinds, "
+            f"{real['flops']:.6e} flops, {fake['mem_bytes']:.6e} result bytes; peak predicted "
+            f"{fake['peak_bytes'] / 1e9:.3f} GB (arguments {fake['argument_bytes'] / 1e9:.3f}), "
+            f"{peak}; on {card}")
+    finally:
+        runner.join()  # every child of (i) ends before the phase does
+    require("error" not in grid, f"(i) the cells' runner failed: {grid.get('error')!r}")
+    recs, wall = grid["recs"], grid["wall"]
+    if early is not None:  # MULTIPOD_EARLY, started with the script
+        t0 = time.perf_counter()
+        _, err = early.communicate(timeout=900)
+        arch, shape, pod = MULTIPOD_EARLY
+        path = MULTIPOD_DIR / f"{arch}__{shape}__{'2x16x16' if pod else '16x16'}.json"
+        require(early.returncode in (0, 1) and path.exists(),
+                f"(i) {arch} {shape}: the cell's process exited {early.returncode}: {err[-1500:]}")
+        recs.append(json.loads(path.read_text()))
+        log(f"  [multipod] (i) {arch} {shape} started with the script (nice 19); waited "
+            f"{time.perf_counter() - t0:.1f}s for it here")
+    for r in recs:
+        require(r["status"] == "ok", f"(i) {r['arch']} {r['shape']} {r['mesh']}: "
+                f"{r.get('error', r.get('reason', ''))[:1500]}")
+        c = r["collectives"]
+        log(f"  [multipod] (i) {r['arch']} {r['shape']} {r['mesh']}: {r['flops']:.4e} flops a "
+            f"rank, collective bytes {json.dumps(c['bytes_by_op'])} ({c['total_bytes']:.4e} "
+            f"in {sum(c['op_counts'].values())} ops), arguments "
+            f"{r['argument_size_in_bytes'] / 1e9:.3f} GB, temp "
+            f"{r['temp_size_in_bytes'] / 1e9:.3f} GB a rank; host s: build {r['lower_s']}, "
+            f"step {r['compile_s']}")
+    log(f"  [multipod] (i) {len(recs)} cells ok; {len(MULTIPOD_CELLS)} in {wall:.1f}s "
+        f"({MULTIPOD_JOBS} at a time); "
+        f"(ii) and (i) took {time.perf_counter() - t_phase:.1f}s on {card}")
+    _take(wrappers, launches, dev, {}, "[multipod]")
+    return launches
+
+
 def _state_leaves(tree):
     """Every tensor of a tree of dicts, lists and tuples (NamedTuples
     included), in order."""
@@ -3028,6 +3270,7 @@ def main() -> int:
     tensor_core_sass(_build)
     pointwise_sass(_build)
 
+    early = start_early_cell("cuda")
     gen = torch.Generator().manual_seed(SEED)
     phase("[kernels] the plain path's integer product against the CPU's int32 product")
     dev = torch.device("cuda")
@@ -3091,6 +3334,11 @@ def main() -> int:
           "shard_train_fn on a 1x1 NCCL mesh vs the unsharded step, compressed_psum on the "
           "card, and 4 gloo ranks sharing the card")
     for name, n in distributed_phase(torch, card, dev).items():
+        launches[name] += n
+    phase("[multipod] the multi-pod dry run: cells of the reference's grid in fake 256 / "
+          "512-rank worlds, and [distributed] (a)'s step analysed in a fake world of one "
+          "against the same step on the card")
+    for name, n in multipod_phase(torch, card, dev, early).items():
         launches[name] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]

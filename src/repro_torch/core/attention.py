@@ -110,10 +110,25 @@ def attention_flash_i8(
     causal: bool = False,
     block_k: int = 512,
     kv_len=None,  # valid KV length: int, or int32 tensor broadcastable to [B,H,Sq,1]
+    *,
+    q_offset: int | None = None,
 ) -> torch.Tensor:
-    """Flash-ITAMax attention: KV blocks in order, ``block_k`` rows each."""
+    """Flash-ITAMax attention: KV blocks in order, ``block_k`` rows each.
+    ``q_offset``: the global position of query 0 (default ``Sk - Sq``,
+    causal alignment)."""
     b, h, sq, d = q_q.shape
     hkv, sk = k_q.shape[1], k_q.shape[2]
+    if isinstance(q_q, DTensor) or isinstance(k_q, DTensor):
+        # Head-parallel (sequence-parallel queries for heads that do not
+        # divide the model axis), on each rank's shards: only q is split;
+        # K/V's seq dim is the walked dim
+        q_off = sk - sq if q_offset is None else q_offset
+        per_row = isinstance(kv_len, torch.Tensor) and kv_len.dim() == 4 and kv_len.shape[0] == b
+        return _on_local_heads(
+            lambda q, k, v, q0, *lens: attention_flash_i8(
+                q, k, v, p, causal=causal, block_k=block_k,
+                kv_len=lens[0] if per_row else kv_len, q_offset=q_off + q0),
+            q_q, k_q, v_q, extra=(kv_len,) if per_row else ())
     k_q = _repeat_kv(k_q, h // hkv)
     v_q = _repeat_kv(v_q, h // hkv)
     # Head-parallel (seq fallback for odd GQA). Only q: K/V's seq dim is
@@ -123,7 +138,8 @@ def attention_flash_i8(
         raise ValueError(f"Sk={sk} is not a multiple of block_k={block_k}")
     dev = q_q.device
     state = im.flash_init((b, h, sq), d, device=dev)
-    q_off = sk - sq  # causal alignment: query i is global position i + q_off
+    # causal alignment: query i is global position i + q_off
+    q_off = sk - sq if q_offset is None else q_offset
     k_t = k_q.transpose(-1, -2)
     for j0 in range(0, sk, block_k):
         acc = imatmul(q_q, k_t[..., j0 : j0 + block_k])
@@ -165,28 +181,48 @@ def attention_decode_i8(
 # Float reference -------------------------------------------------------------
 
 
-def _on_local_heads(fn, q, k, v):
-    """``fn(q, k, v)`` on each rank's shard of DTensor inputs.  Attention is
-    independent across batch rows and heads: those dims keep their shards,
-    any other is gathered, and ``fn`` runs on the local tensors, so the
-    result is the unsharded one, element for element.  (Run as DTensor
-    ops, einsum's batched products view the two sharded dims as one, which
-    DTensor 2.11 refuses.)"""
-    from torch.distributed.tensor import Replicate, Shard
+def _on_local_heads(fn, q, k, v, extra=()):
+    """``fn(q, k, v, q0, *extra)`` on each rank's shards of DTensor inputs
+    (``activations.local_shards``), as GSPMD partitions the attention of
+    the JAX package: batch rows over the data axes; query heads over
+    "model" where it divides them, else query positions (``q0``: the
+    global position of a rank's first query; ``extra``: [B, ...] tensors
+    split by batch row); each rank holds the K/V heads that its own query
+    heads use (shards where "model" divides the K/V heads too, else the
+    whole K/V, from which it takes them: 8 K/V heads over 16 ranks give
+    query heads 4r..4r+3 their K/V head r // 2).  The result equals the
+    unsharded one, element for element.  (Run as DTensor ops, einsum's
+    batched products view two sharded dims as one, which DTensor 2.11
+    refuses.)"""
+    from repro_torch.runtime.activations import active_mesh, fits, local_shards
+    from repro_torch.runtime.sharding import P, axis_names, data_axes
 
-    mesh = q.device_mesh
-    keep = [p if isinstance(p, Shard) and p.dim < 2 else Replicate() for p in q.placements]
+    mesh = active_mesh() or next(t.device_mesh for t in (q, k, v) if isinstance(t, DTensor))
+    names = axis_names(mesh)
+    b, h, sq = q.shape[:3]
+    hkv = k.shape[1]
+    b_ax = data_axes(mesh)
+    b_ax = b_ax if fits(b, b_ax, mesh) else None
+    m = names.index("model") if "model" in names else None
+    n = mesh.size(m) if m is not None else 1
+    h_ax = "model" if n > 1 and fits(h, "model", mesh) else None
+    s_ax = "model" if n > 1 and h_ax is None and fits(sq, "model", mesh) else None
+    kv_ax = h_ax if h_ax and fits(hkv, "model", mesh) else None
+    r = mesh.get_local_rank(m) if n > 1 else 0
+    q0 = r * (sq // n) if s_ax else 0
+    per, rep = h // n, h // hkv
 
-    def placed(t):
-        if not isinstance(t, DTensor):  # made by the model: the same on every rank
-            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
-        return t.redistribute(mesh, keep)
+    def run(q, k, v, *ex):
+        if h_ax and not kv_ax:  # the K/V head of each local query head
+            sel = torch.arange(r * per, (r + 1) * per, device=k.device) // rep
+            k, v = k.index_select(1, sel), v.index_select(1, sel)
+        return fn(q, k, v, q0, *ex)
 
-    q, k, v = placed(q), placed(k), placed(v)
-    out = fn(q.to_local(), k.to_local(), v.to_local())
-    shape = (*q.shape[:3], v.shape[3])
-    return DTensor.from_local(out, mesh, keep, shape=torch.Size(shape),
-                              stride=torch.empty(shape, device="meta").stride())
+    q_spec = P(b_ax, h_ax, s_ax, None)
+    kv_spec = P(b_ax, kv_ax, None, None)
+    ex_specs = tuple(P(b_ax, *([None] * (t.dim() - 1))) for t in extra)
+    return local_shards(run, (q, k, v, *extra), (q_spec, kv_spec, kv_spec, *ex_specs), q_spec,
+                        mesh=mesh)
 
 
 def attention_f32_chunked(
@@ -196,20 +232,24 @@ def attention_f32_chunked(
     causal: bool = False,
     block_q: int = 1024,
     logit_clip: float | None = None,
+    *,
+    q_offset: int | None = None,
 ) -> torch.Tensor:
     """Float attention one block of ``block_q`` queries at a time (a full
-    softmax row per query): never holds the S x S logits at once."""
-    if isinstance(q, DTensor):
-        return _on_local_heads(lambda q, k, v: attention_f32_chunked(
-            q, k, v, causal=causal, block_q=block_q, logit_clip=logit_clip), q, k, v)
+    softmax row per query): never holds the S x S logits at once.
+    ``q_offset``: the global position of query 0 (default ``Sk - Sq``)."""
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
+    q_off = sk - sq if q_offset is None else q_offset
+    if isinstance(q, DTensor):
+        return _on_local_heads(lambda q, k, v, q0: attention_f32_chunked(
+            q, k, v, causal=causal, block_q=block_q, logit_clip=logit_clip,
+            q_offset=q_off + q0), q, k, v)
     k = _repeat_kv(k, h // hkv)
     v = _repeat_kv(v, h // hkv)
     if sq % block_q:
-        return attention_f32(q, k, v, causal=causal, logit_clip=logit_clip)
+        return attention_f32(q, k, v, causal=causal, logit_clip=logit_clip, q_offset=q_off)
     scale = 1.0 / math.sqrt(d)
-    q_off = sk - sq
     outs = []
     for i0 in range(0, sq, block_q):
         logits = torch.einsum("bhqd,bhkd->bhqk", q[:, :, i0:i0 + block_q], k) * scale
@@ -230,12 +270,17 @@ def attention_f32(
     causal: bool = False,
     mask: torch.Tensor | None = None,
     logit_clip: float | None = None,
+    *,
+    q_offset: int | None = None,
 ) -> torch.Tensor:
     """Standard float attention; ``logit_clip`` mimics the int8 logit range
-    (+- 127 * ITAMAX_LOGIT_SCALE) for QAT parity with the integer path."""
+    (+- 127 * ITAMAX_LOGIT_SCALE) for QAT parity with the integer path.
+    ``q_offset``: the global position of query 0 (default ``Sk - Sq``)."""
+    sq, sk = q.shape[2], k.shape[2]
+    q_off = sk - sq if q_offset is None else q_offset
     if isinstance(q, DTensor) and mask is None:
-        return _on_local_heads(lambda q, k, v: attention_f32(
-            q, k, v, causal=causal, logit_clip=logit_clip), q, k, v)
+        return _on_local_heads(lambda q, k, v, q0: attention_f32(
+            q, k, v, causal=causal, logit_clip=logit_clip, q_offset=q_off + q0), q, k, v)
     h, hkv = q.shape[1], k.shape[1]
     k = _repeat_kv(k, h // hkv)
     v = _repeat_kv(v, h // hkv)
@@ -244,8 +289,7 @@ def attention_f32(
         logits = torch.clamp(logits, -logit_clip, logit_clip)
     neg = torch.finfo(logits.dtype).min
     if causal:
-        sq, sk = q.shape[2], k.shape[2]
-        logits = torch.where(_causal_mask(sq, sk, sk - sq, q.device), logits, neg)
+        logits = torch.where(_causal_mask(sq, sk, q_off, q.device), logits, neg)
     if mask is not None:
         logits = torch.where(mask, logits, neg)
     a = torch.softmax(logits.to(torch.float32), dim=-1).to(q.dtype)

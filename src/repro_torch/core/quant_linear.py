@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.core.igelu import IGeluParams, gelu_f32, igelu_int, make_igelu_params
 from repro_torch.quant.qparams import (
+    _is_dtensor,
     i32,
     imatmul,
     make_qparams,
@@ -72,6 +73,10 @@ def make_qlinear_params(
 
 def qlinear_epilogue(acc: torch.Tensor, p: QLinearParams) -> torch.Tensor:
     """Bias-added int32 accumulator -> int8 output of the activation unit."""
+    if _is_dtensor(acc):  # each rank's shard
+        from repro_torch.runtime.activations import pointwise_local
+
+        return pointwise_local(lambda a: qlinear_epilogue(a, p), acc)
     if p.act == ACT_IDENTITY:
         return requantize(acc, p.mult, p.shift)
     if p.act == ACT_RELU:

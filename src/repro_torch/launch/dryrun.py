@@ -1,4 +1,4 @@
-"""Plan-backed dry run of the port: the paper's deployment flow, executed and checked.
+"""Dry runs of the port: the plan-backed deployment flow, and the multi-pod grid.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mobilebert --reduced --via-plan --device cpu
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b --reduced --via-plan --device cpu
@@ -23,11 +23,45 @@ It runs on the card unless ``--device cpu``.  Inputs are drawn from a
 ``numpy.random.Generator`` seeded with 0 (the JAX package draws them from
 ``jax.random``; the records do not hold them).
 
-The JAX package's dry run also lowers and compiles multi-pod cells
-against TPU meshes (``run_cell``); the port has no counterpart of that
-half yet, so ``main`` without ``--via-plan`` exits non-zero saying so.
-The names that half is built from (the production mesh, the sharding
-rules, the activation policy, the cells) are imported here already.
+Multi-pod dry run (without ``--via-plan``): for every (architecture x
+input-shape) cell, run the real step — ``train_step`` (AdamW, remat,
+microbatching, FSDP) for train cells, ``prefill`` / ``decode_step`` for
+serving cells — once on the production mesh (16x16, or 2x16x16 with
+``--multi-pod``), with the parameters, optimizer state, batch and cache
+placed by the sharding rules, and record what one rank runs:
+
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multi-pod both
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mamba2-370m --shape decode_32k \
+      --device cpu
+
+The world is a fake process group of 256 or 512 ranks in which this
+process is rank 0 (``launch.mesh.init_fake_world``), and the state lives
+in ``FakeTensorMode`` on the device ``--device`` names (the card by
+default): no data moves and nothing is allocated, so the numbers are
+shapes, ops and bytes per rank.  A cell that runs proves that DTensor
+can shard the step as the rules place it; one that fails is recorded
+``failed`` with DTensor's message, as the JAX package records a failed
+lowering.  ``deploy.hlo_analysis`` reads the rank's local op stream where
+the JAX package parses partitioned HLO.  Each record (one JSON per cell
+under ``--out-dir``, the JAX package's file names) holds the JAX
+package's keys with these meanings here:
+
+  lower_s      seconds to build the cell: the state drawn in fake tensors
+               and placed on the mesh as DTensors (no lowering in eager torch)
+  compile_s    seconds to run the step once in the fake world: DTensor's
+               sharding propagation and the local op stream (no compile)
+  flops, mem_bytes, collectives   ``hlo_analysis.analyze_hlo`` of the stream
+  argument_size_in_bytes  the rank's shards of the step's arguments
+  output_size_in_bytes    the rank's shards of its results (a train step
+               updates params and state in place and returns them: counted)
+  temp_size_in_bytes      the most live bytes during the step above the
+               arguments (``peak_bytes``, the port's own key, minus them)
+
+``xla_cost_flops``, ``generated_code_size_in_bytes`` and
+``alias_size_in_bytes`` have no counterpart and are left out.  One
+process holds one world, so ``--multi-pod both`` and ``--jobs`` run the
+cells in child processes, each in its own world.
 """
 
 from __future__ import annotations
@@ -35,12 +69,15 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
+import sys
 import time
+import traceback
 
 import numpy as np
 import torch
 
-from repro_torch.configs import (  # noqa: F401
+from repro_torch.configs import (
     ALL_SHAPES,
     get_config,
     list_archs,
@@ -49,15 +86,277 @@ from repro_torch.configs import (  # noqa: F401
 )
 from repro_torch.convert import to_device
 from repro_torch.deploy import api
-from repro_torch.launch.mesh import make_production_mesh  # noqa: F401
-from repro_torch.models import build, input_specs  # noqa: F401
-from repro_torch.runtime.activations import activation_policy  # noqa: F401
-from repro_torch.runtime.sharding import (  # noqa: F401
+from repro_torch.deploy.hlo_analysis import OpRecorder, analyze_hlo
+from repro_torch.launch.mesh import init_fake_world, make_production_mesh
+from repro_torch.models import build, input_specs
+from repro_torch.optim import adamw
+from repro_torch.runtime.activations import activation_policy
+from repro_torch.runtime.sharding import (
+    _map2,
     batch_shardings,
     cache_shardings,
     opt_state_shardings,
     param_shardings,
 )
+
+# train-cell microbatch counts (memory fitting; the global batch is fixed)
+MICROBATCHES = {
+    "qwen1.5-110b": 16,
+    "mistral-large-123b": 16,
+    "llava-next-34b": 8,
+    "seamless-m4t-large-v2": 4,
+    "zamba2-2.7b": 4,
+    "mamba2-370m": 2,
+    "qwen2-moe-a2.7b": 2,
+}
+
+#: the world a production mesh needs, by ``multi_pod``
+WORLD = {False: 256, True: 512}
+
+
+def fake_mode():
+    """The ``FakeTensorMode`` a dry run's state lives in (plain tensors the
+    model makes on the host, such as a cache's length, are taken in)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    return FakeTensorMode(allow_non_fake_inputs=True)
+
+
+def _spec_tensors(specs: dict, device) -> dict:
+    """Zeros for ``model_zoo.input_specs``' stand-ins (fake under a fake mode)."""
+    return {k: torch.zeros(s.shape, dtype=s.dtype, device=device) for k, s in specs.items()}
+
+
+def place(tree, shardings):
+    """Every tensor leaf of ``tree`` as a DTensor holding this rank's shard
+    of it on its ``NamedSharding`` (a slice of the leaf; no collective
+    runs)."""
+    from torch.distributed.tensor import DTensor
+
+    def put(leaf, sh):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        pl, coord = sh.placements, sh.mesh.get_coordinate()
+        shape, offset = list(leaf.shape), [0] * leaf.dim()
+        for i, p in enumerate(pl):  # the rules' shards divide evenly (sanitize_spec)
+            if p.is_shard():
+                shape[p.dim] //= sh.mesh.size(i)
+                offset[p.dim] += coord[i] * shape[p.dim]
+        local = leaf
+        if tuple(shape) != tuple(leaf.shape):
+            local = leaf[tuple(slice(o, o + n) for o, n in zip(offset, shape))].clone()
+        return DTensor.from_local(local, sh.mesh, pl, run_check=False, shape=leaf.shape,
+                                  stride=leaf.stride())
+
+    return _map2(put, tree, shardings)
+
+
+def _cell(shape_name: str):
+    return next(c for c in ALL_SHAPES if c.name == shape_name)
+
+
+def build_cell(arch: str, shape_name: str, mesh, *, seed: int = 0, device=None):
+    """Returns ``(fn, args, shardings, meta)`` for one cell: ``fn(*args)``
+    runs the cell's step on ``args``, already placed on ``mesh`` by
+    ``shardings``.  Call it under :func:`fake_mode` for shapes alone
+    (``run_cell`` does); outside one it draws real tensors."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    cfg = get_config(arch)
+    cell = _cell(shape_name)
+    api_ = build(cfg)
+    dev = api.resolve_device(device)
+
+    if cell.kind == "train":
+        from repro_torch.launch.train import make_train_step, shard_train_fn
+
+        params = api_.init_params(seed, torch.bfloat16, device=dev)
+        opt_state = adamw.init(params)
+        batch = _spec_tensors(input_specs(cfg, cell, torch.bfloat16), dev)
+        mb = MICROBATCHES.get(arch, 1)
+        step = make_train_step(api_, microbatches=mb, remat=True)
+        # ZeRO-3/FSDP: params + optimizer fully sharded (data axes included)
+        p_sh = param_shardings(mesh, params, fsdp=True)
+        o_sh = opt_state_shardings(mesh, opt_state, p_sh)
+        b_sh = batch_shardings(mesh, batch)
+        fn = shard_train_fn(step, mesh, params, opt_state, batch, fsdp=True)
+        args = (place(params, p_sh), place(opt_state, o_sh), place(batch, b_sh))
+        return fn, args, (p_sh, o_sh, b_sh), {"microbatches": mb, "kind": "train",
+                                               "fsdp": True}
+
+    sparams = api_.init_serve_params(seed, device=dev)
+    sp_sh = param_shardings(mesh, sparams)
+
+    def serving(f):
+        def run(*a):
+            with implicit_replication():  # plain tensors the model makes: replicated
+                return f(*a)
+        return run
+
+    if cell.kind == "prefill":
+        batch = _spec_tensors(input_specs(cfg, cell, torch.bfloat16), dev)
+        b_sh = batch_shardings(mesh, batch)
+        fn = serving(lambda sp, b: api_.prefill(sp, b, cell.seq_len))
+        return fn, (place(sparams, sp_sh), place(batch, b_sh)), (sp_sh, b_sh), {
+            "kind": "prefill"}
+
+    # decode
+    cache = api_.init_cache_shape(cell.global_batch, cell.seq_len)(device=dev)
+    seq_shard = cell.name == "long_500k"
+    c_sh = cache_shardings(mesh, cache, seq_shard=seq_shard)
+    token = _spec_tensors({"token": input_specs(cfg, cell)["token"]}, dev)["token"]
+    t_sh = batch_shardings(mesh, {"token": token})["token"]
+    fn = serving(api_.decode_step)
+    placed = place(cache, c_sh)
+    placed["len"] = cache["len"]  # host data: the decode step reads it on the host
+    args = (place(sparams, sp_sh), placed, place(token, t_sh))
+    return fn, args, (sp_sh, c_sh, t_sh), {"kind": "decode"}
+
+
+def analyze_cell(arch: str, shape_name: str, mesh, *, device=None, fake: bool = True,
+                 seed: int = 0) -> dict:
+    """``build_cell`` on ``mesh`` and one run of its step, recorded by
+    ``hlo_analysis``: the record's numbers.  ``fake``: the state in
+    :func:`fake_mode` (shapes only); else real tensors on ``device``."""
+    import contextlib
+
+    dev = api.resolve_device(device)
+    t0 = time.time()
+    with fake_mode() if fake else contextlib.nullcontext():
+        fn, args, _, meta = build_cell(arch, shape_name, mesh, seed=seed, device=dev)
+        t_lower = time.time() - t0
+        ops = OpRecorder(dev.type)
+        arg_bytes = ops.track(args)
+        with activation_policy(mesh, sequence_parallel=(meta["kind"] == "train")), ops:
+            out = fn(*args)
+        t_compile = time.time() - t0 - t_lower
+    hlo = analyze_hlo(ops)
+    return {
+        **meta,
+        "lower_s": round(t_lower, 2),
+        "compile_s": round(t_compile, 2),
+        "flops": hlo["flops"],
+        "mem_bytes": hlo["mem_bytes"],
+        "collectives": {
+            "bytes_by_op": hlo["collective_by_op"],
+            "op_counts": hlo["collective_counts"],
+            "total_bytes": hlo["collective_bytes"],
+        },
+        "argument_size_in_bytes": arg_bytes,
+        "output_size_in_bytes": OpRecorder.local_bytes(out, dev.type),
+        "temp_size_in_bytes": hlo["peak_bytes"] - arg_bytes,
+        "peak_bytes": hlo["peak_bytes"],
+        "n_computations": hlo["n_computations"],
+        "op_counts": hlo["op_counts"],
+    }
+
+
+def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: str,
+             device=None) -> dict:
+    """One cell in a fake world of 256 / 512 ranks (started here unless a
+    world is running): its record, also written to ``out_dir``."""
+    import torch.distributed as dist
+
+    cfg = get_config(arch)
+    cell = _cell(shape_name)
+    ok, reason = shape_applicable(cfg, cell)
+    mesh_name = "2x16x16" if multi_pod else "16x16"
+    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name}
+    if not ok:
+        rec.update(status="skipped", reason=reason)
+        return rec
+
+    try:
+        dev = api.resolve_device(device)
+        if not dist.is_initialized():
+            init_fake_world(WORLD[multi_pod])
+        mesh = make_production_mesh(multi_pod=multi_pod, device=dev)
+        rec.update(analyze_cell(arch, shape_name, mesh, device=dev), status="ok")
+    except Exception as e:  # noqa: BLE001 — failures are findings
+        rec.update(status="failed", error=f"{type(e).__name__}: {e}",
+                   traceback=traceback.format_exc()[-2000:])
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"{arch.replace('/', '_')}__{shape_name}__{mesh_name}.json")
+    with open(path, "w") as f:
+        json.dump(rec, f, indent=1)
+    return rec
+
+
+def _cell_in_child(arch: str, shape: str, multi_pod: bool, out_dir: str,
+                   device) -> subprocess.Popen:
+    argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+            "--multi-pod", "on" if multi_pod else "off", "--out-dir", out_dir]
+    if device is not None:
+        argv += ["--device", str(device)]
+    # the child finds this package where this process found it
+    src = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+    return subprocess.Popen(argv, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+                            env=env)
+
+
+#: the order in which a grid starts its cells: the costliest first (a train
+#: step runs its layers forward, again under remat and backward, once a
+#: microbatch; long_500k walks 256 KV blocks a layer), so that no long cell
+#: starts last
+_START_ORDER = {"train": 0, "prefill": 1, "decode": 2}
+
+
+def run_grid(cells, *, out_dir: str, device=None, jobs: int = 1) -> list[dict]:
+    """The records of ``cells`` ((arch, shape, multi_pod) each), in order,
+    each run in a child process, ``jobs`` at a time (the costliest first),
+    in a fake world of its own (a child that dies is a failed cell); each
+    one's line prints as it ends."""
+    results: dict = {}
+    running: dict = {}
+
+    def cost(item):
+        (arch, shape, _mp) = item[1]
+        cell = _cell(shape)
+        return (_START_ORDER[cell.kind] if cell.name != "long_500k" else 0,
+                -MICROBATCHES.get(arch, 1) * get_config(arch).n_layers)
+
+    todo = sorted(enumerate(cells), key=cost)
+    while todo or running:
+        while todo and len(running) < max(jobs, 1):
+            i, (arch, shape, mp) = todo.pop(0)
+            ok, reason = shape_applicable(get_config(arch), _cell(shape))
+            if not ok:
+                results[i] = run_cell(arch, shape, multi_pod=mp, out_dir=out_dir)
+                continue
+            running[i] = _cell_in_child(arch, shape, mp, out_dir, device)
+        for i, proc in list(running.items()):
+            if proc.poll() is None:
+                continue
+            err = proc.stderr.read()
+            del running[i]
+            arch, shape, mp = cells[i]
+            mesh_name = "2x16x16" if mp else "16x16"
+            path = os.path.join(out_dir, f"{arch.replace('/', '_')}__{shape}__{mesh_name}.json")
+            try:
+                with open(path) as f:
+                    results[i] = json.load(f)
+            except OSError:
+                results[i] = {"arch": arch, "shape": shape, "mesh": mesh_name,
+                              "status": "failed",
+                              "error": f"the cell's process exited {proc.returncode}: "
+                                       f"{err[-1500:]}"}
+            print(_summary_line(results[i]), flush=True)
+        time.sleep(0.2)
+    return [results[i] for i in range(len(cells))]
+
+
+def _summary_line(rec: dict) -> str:
+    status = rec["status"]
+    extra = (
+        f"flops={rec.get('flops', 0):.3e} "
+        f"coll={rec.get('collectives', {}).get('total_bytes', 0):.3e}B "
+        f"compile={rec.get('compile_s', 0)}s"
+        if status == "ok"
+        else rec.get("reason", rec.get("error", ""))[:120]
+    )
+    return f"[{status:7s}] {rec['arch']:22s} {rec['shape']:12s} {rec['mesh']:8s} {extra}"
 
 
 def _sync(device: torch.device) -> None:
@@ -252,6 +551,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.dryrun")
     ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--multi-pod", choices=["off", "on", "both"], default="off")
     ap.add_argument("--out-dir", default="experiments/dryrun")
     add_plan_args(ap, via_plan_help="compile --arch to its deployment artifact and "
                   "execute it, verifying bit-exactness vs the model-level w8a8 path "
@@ -265,12 +567,26 @@ def main(argv=None) -> int:
                          "against decode_step_w8a8")
     ap.add_argument("--head-by-head", action="store_true",
                     help="lower with the paper's per-head MHA schedule")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="multi-pod cells run at once, each in a child process")
     args = ap.parse_args(argv)
 
     if not args.via_plan:
-        raise SystemExit(
-            "dryrun: only --via-plan is ported; the multi-pod cells (lowered against TPU "
-            "meshes in the JAX package) have no counterpart in the port yet")
+        archs = [args.arch] if args.arch else list_archs()[:10]
+        shapes = [args.shape] if args.shape else [c.name for c in ALL_SHAPES]
+        pods = {"off": [False], "on": [True], "both": [False, True]}[args.multi_pod]
+        cells = [(a, s, mp) for a in archs for s in shapes for mp in pods]
+        if len(cells) == 1:
+            results = [run_cell(archs[0], shapes[0], multi_pod=pods[0], out_dir=args.out_dir,
+                                device=args.device)]
+            print(_summary_line(results[0]), flush=True)
+        else:
+            results = run_grid(cells, out_dir=args.out_dir, device=args.device, jobs=args.jobs)
+        n_ok = sum(r["status"] == "ok" for r in results)
+        n_skip = sum(r["status"] == "skipped" for r in results)
+        n_fail = sum(r["status"] == "failed" for r in results)
+        print(f"\ndry-run: {n_ok} ok, {n_skip} skipped (documented), {n_fail} failed")
+        return 1 if n_fail else 0
     if not args.arch:
         raise SystemExit("--via-plan requires --arch")
     return run_via_plan(

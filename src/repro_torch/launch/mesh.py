@@ -8,6 +8,8 @@ the JAX package's: ``("data", "model")``, and ``("pod", "data",
 
 ``make_host_mesh`` starts a group of one when none is initialised (NCCL
 on the card, gloo on the CPU), so a single process needs no launcher.
+``init_fake_world`` starts a fake group of any size instead, whose
+collectives move nothing (the multi-pod dry run).
 ``spawn`` runs a function on N local ranks joined over gloo (the CPU
 tests; several ranks sharing one card, where NCCL refuses a second rank
 on the same GPU).
@@ -41,6 +43,17 @@ def _start(device) -> torch.device:
         dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1,
                                 timeout=datetime.timedelta(seconds=TIMEOUT_S))
     return dev
+
+
+def init_fake_world(world_size: int) -> None:
+    """Starts a fake process group of ``world_size`` ranks in which this
+    process is rank 0 (the dry run's world: ``make_production_mesh`` builds
+    its real ``DeviceMesh`` there).  Its collectives move no data and
+    return at once: with ``FakeTensorMode`` a rank runs its share of a
+    step on shapes alone."""
+    import torch.testing._internal.distributed.fake_pg as fake_pg  # registers "fake"
+
+    dist.init_process_group("fake", store=fake_pg.FakeStore(), rank=0, world_size=world_size)
 
 
 def make_mesh(shape, axis_names, *, device=None, ranks=None) -> DeviceMesh:

@@ -22,14 +22,17 @@ from repro_torch.core.attention import (
     attention_flash_i8,
 )
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _merge_heads, _split_heads
+from repro_torch.models.transformer import DTensor, _heads_local, _merge_heads, _split_heads
 from repro_torch.quant.qparams import imatmul
+from repro_torch.runtime import activations as A
 from repro_torch.runtime.activations import constrain
 
 _S_GAMMA = 1.0 / 64.0
 
 
 def _heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    if isinstance(x, DTensor):  # as transformer._split_heads
+        return _heads_local(x, lambda t: _heads(t, n, d), 1)
     b, s, _ = x.shape
     return x.reshape(b, s, n, d).permute(0, 2, 1, 3)
 
@@ -98,31 +101,32 @@ def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor, **_) -> torch.Te
     x = frames + params["enc_pos"][: frames.shape[1]].to(frames.dtype)
     for lp in params["enc_layers"]:
         x = constrain(x, "residual")
-        h = L.norm_apply(cfg.norm, lp["norm1"], x)
-        x = x + _attn_f32(cfg, lp["attn"], h, h, causal=False)
-        h = L.norm_apply(cfg.norm, lp["norm2"], x)
-        x = x + L.mlp_forward(lp["mlp"], h, cfg.mlp)
+        h = constrain(L.norm_apply(cfg.norm, lp["norm1"], x), "gathered")
+        x = x + constrain(_attn_f32(cfg, lp["attn"], h, h, causal=False), "residual")
+        h = constrain(L.norm_apply(cfg.norm, lp["norm2"], x), "gathered")
+        x = x + constrain(L.mlp_forward(lp["mlp"], h, cfg.mlp), "residual")
         x = constrain(x, "residual")
-    return L.norm_apply(cfg.norm, params["enc_final"], x)
+    return constrain(L.norm_apply(cfg.norm, params["enc_final"], x), "gathered")
 
 
 def forward(cfg: ArchConfig, params: dict, batch: dict, **_) -> torch.Tensor:
     """batch: frames [B, T, D], tokens [B, S].  Returns the decoder's logits."""
     memory = encode(cfg, params, batch["frames"])
     tokens = batch["tokens"].long()
-    x = params["dec_embed"]["table"][tokens] + \
+    x = L.embed_lookup(params["dec_embed"]["table"], tokens) + \
         params["dec_pos"][: tokens.shape[1]].to(memory.dtype)
     for lp in params["dec_layers"]:
         x = constrain(x, "residual")
-        h = L.norm_apply(cfg.norm, lp["norm1"], x)
-        x = x + _attn_f32(cfg, lp["self_attn"], h, h, causal=True)
-        h = L.norm_apply(cfg.norm, lp["norm_x"], x)
-        x = x + _attn_f32(cfg, lp["cross_attn"], h, memory, causal=False)
-        h = L.norm_apply(cfg.norm, lp["norm2"], x)
-        x = x + L.mlp_forward(lp["mlp"], h, cfg.mlp)
+        h = constrain(L.norm_apply(cfg.norm, lp["norm1"], x), "gathered")
+        x = x + constrain(_attn_f32(cfg, lp["self_attn"], h, h, causal=True), "residual")
+        h = constrain(L.norm_apply(cfg.norm, lp["norm_x"], x), "gathered")
+        x = x + constrain(_attn_f32(cfg, lp["cross_attn"], h, memory, causal=False),
+                          "residual")
+        h = constrain(L.norm_apply(cfg.norm, lp["norm2"], x), "gathered")
+        x = x + constrain(L.mlp_forward(lp["mlp"], h, cfg.mlp), "residual")
         x = constrain(x, "residual")
-    x = L.norm_apply(cfg.norm, params["dec_final"], x)
-    return x @ params["lm_head"]["w"]
+    x = constrain(L.norm_apply(cfg.norm, params["dec_final"], x), "gathered")
+    return L.matmul(x, params["lm_head"]["w"])
 
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict, **_) -> torch.Tensor:
@@ -218,11 +222,11 @@ def init_cache_w8a8(cfg: ArchConfig, batch: int, max_len: int, device=None) -> d
     shape = (cfg.dec_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     cross = (cfg.dec_layers, batch, cfg.n_kv_heads, cfg.n_frames, cfg.head_dim)
     return {
-        "k": torch.zeros(shape, dtype=torch.int8, device=device),
-        "v": torch.zeros(shape, dtype=torch.int8, device=device),
-        "ck": torch.zeros(cross, dtype=torch.int8, device=device),
-        "cv": torch.zeros(cross, dtype=torch.int8, device=device),
-        "len": torch.zeros((), dtype=torch.int32),
+        "k": A.zeros(shape, torch.int8, device, "kv_cache"),
+        "v": A.zeros(shape, torch.int8, device, "kv_cache"),
+        "ck": A.zeros(cross, torch.int8, device, "kv_cache"),
+        "cv": A.zeros(cross, torch.int8, device, "kv_cache"),
+        "len": torch.tensor(0, dtype=torch.int32),
     }
 
 
@@ -239,7 +243,8 @@ def prefill_w8a8(cfg: ArchConfig, qp: dict, batch: dict, max_len: int,
     tokens = batch["tokens"].long()
     b, s = tokens.shape
     add = L.make_iadd_params(q.s_res, q.s_res, q.s_res)
-    x_q = L.iadd_i8(qp["dec_embed"]["table_q"][tokens], qp["dec_pos_q"][None, :s], *add)
+    x_q = L.iadd_i8(L.embed_lookup(qp["dec_embed"]["table_q"], tokens), qp["dec_pos_q"][None, :s],
+                    *add)
     st, _, res = _sites(q)
     p = MhaQParams.make_flash(q.s_act, q.s_act, q.s_act, q.s_act, cfg.head_dim)
     t = memory_q.shape[1]
@@ -273,7 +278,7 @@ def decode_step_w8a8(cfg: ArchConfig, qp: dict, cache: dict, token: torch.Tensor
     pos = int(cache["len"])
     b = token.shape[0]
     add = L.make_iadd_params(q.s_res, q.s_res, q.s_res)
-    x_q = L.iadd_i8(qp["dec_embed"]["table_q"][token.long()],
+    x_q = L.iadd_i8(L.embed_lookup(qp["dec_embed"]["table_q"], token),
                     qp["dec_pos_q"][None, pos : pos + 1], *add)
     st, _, res = _sites(q)
     p = MhaQParams.make_flash(q.s_act, q.s_act, q.s_act, q.s_act, cfg.head_dim)

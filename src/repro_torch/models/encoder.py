@@ -35,6 +35,7 @@ from repro_torch.kernels.ita_attention import ita_attention
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import layer_fwd
 from repro_torch.quant.qparams import i32, imatmul, make_qparams, requantize
+from repro_torch.runtime.activations import constrain
 
 _S_GAMMA = 1.0 / 64.0
 
@@ -93,7 +94,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32, device=None
 
 def embed(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
     if "tokens" in batch and cfg.vocab:
-        x = params["embed"]["table"][batch["tokens"].long()]
+        x = L.embed_lookup(params["embed"]["table"], batch["tokens"])
     elif "patches" in batch:
         x = batch["patches"]
     else:
@@ -115,9 +116,9 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *, qat: bool = False,
 
     for lp in params["layers"]:
         x = checkpoint(body, x, lp, use_reentrant=False) if remat else body(x, lp)
-    x = L.norm_apply(cfg.norm, params["final_norm"], x)
+    x = constrain(L.norm_apply(cfg.norm, params["final_norm"], x), "gathered")
     if cfg.vocab and "tokens" in batch:
-        return x @ params["embed"]["table"].T  # tied MLM head
+        return L.matmul(x, params["embed"]["table"].T)  # tied MLM head
     return x
 
 

@@ -30,6 +30,7 @@ from repro_torch.core.quant_linear import (  # noqa: F401  (ACT_* re-exported)
     qlinear_i8,
 )
 from repro_torch.quant.qparams import (
+    _is_dtensor,
     i32,
     make_qparams,
     quantize_weight_per_tensor,
@@ -82,10 +83,67 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int, bias: bool,
 
 
 def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"]
+    y = matmul(x, p["w"])
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``.  On DTensors its gradient comes back laid out as its
+    output (``activations.grad_as_output``), so that the product's backward
+    views rows no DTensor version refuses."""
+    from repro_torch.runtime.activations import grad_as_output
+
+    return grad_as_output(x @ w)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``: the embedding gather.
+
+    On a sharded step (DTensors) it is the vocab-parallel gather, run on
+    each rank's shards (``activations.local_shards``): a rank looks its
+    tokens up in its slice of the vocab ("model"), zero where a token lies
+    outside it, and the rows are a sum still to reduce over "model" (one
+    rank holds each row, so the sum is exact).  DTensor's own rules for
+    the gather's backward (``index_put``) are refused by some torch
+    versions ("Shard dim -1 ... must be normalized").  The sum is reduced
+    at once: the integer path's next ops work in place."""
+    from repro_torch.runtime import activations as A
+
+    try:
+        from torch.distributed.tensor import DTensor, Partial
+    except ImportError:
+        DTensor = ()
+    if not isinstance(table, DTensor) and not isinstance(tokens, DTensor):
+        return table[tokens.long()]
+    from repro_torch.runtime.sharding import P, axis_names, data_axes, placements
+
+    mesh = table.device_mesh if isinstance(table, DTensor) else tokens.device_mesh
+    names = axis_names(mesh)
+    da = data_axes(mesh)
+    b_ax = da if A.fits(tokens.shape[0], da, mesh) else None
+    tok_spec = P(b_ax, *([None] * (tokens.dim() - 1)))
+    out_spec = P(b_ax, *([None] * tokens.dim()))
+    v = table.shape[0]
+    if "model" not in names or mesh.size(names.index("model")) == 1 \
+            or not A.fits(v, "model", mesh):
+        return A.local_shards(lambda t, i: t[i.long()], (table, tokens),
+                              (P(None, None), tok_spec), out_spec, mesh=mesh)
+    m = names.index("model")
+    per = v // mesh.size(m)
+    lo = mesh.get_local_rank(m) * per
+
+    def lookup(t, i):
+        i = i.long() - lo
+        inside = (i >= 0) & (i < per)
+        rows = t[torch.where(inside, i, 0)]
+        return rows * inside[..., None].to(rows.dtype)
+
+    out_pl = tuple(Partial() if n == "model" else p
+                   for n, p in zip(names, placements(mesh, out_spec)))
+    return A._reduced(A.local_shards(lookup, (table, tokens), (P("model", None), tok_spec),
+                                     out_pl, mesh=mesh))
 
 
 def init_norm(kind: str, d: int, dtype=torch.float32, device=None) -> dict:
@@ -147,8 +205,8 @@ def token_nll(logits: torch.Tensor, labels: torch.Tensor, vocab: int) -> torch.T
 
 def mlp_forward(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "swiglu":
-        return (silu(linear(p["gate"], x)) * linear(p["up"], x)) @ p["down"]["w"]
-    return gelu_f32(linear(p["up"], x)) @ p["down"]["w"]
+        return matmul(silu(linear(p["gate"], x)) * linear(p["up"], x), p["down"]["w"])
+    return matmul(gelu_f32(linear(p["up"], x)), p["down"]["w"])
 
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
@@ -183,6 +241,13 @@ def init_qlinear(gen: torch.Generator, d_in: int, d_out: int, bias: bool) -> dic
 
 
 def norm_apply_i8(kind: str, pq: dict, x_q: torch.Tensor, s_gamma: float, s_out: float):
+    if _is_dtensor(x_q):  # each rank's rows, whole (see activations.pointwise_local)
+        from repro_torch.runtime.activations import pointwise_local
+
+        keys = sorted(pq)
+        return pointwise_local(lambda x, *g: norm_apply_i8(kind, dict(zip(keys, g)), x, s_gamma,
+                                                           s_out),
+                               x_q, *(pq[k] for k in keys), rows=True)
     if kind == "rmsnorm":
         return iln.irmsnorm_i8(x_q, pq["g_q"], s_gamma, s_out)
     if kind == "np_layernorm":
@@ -192,6 +257,11 @@ def norm_apply_i8(kind: str, pq: dict, x_q: torch.Tensor, s_gamma: float, s_out:
 
 def iadd_i8(a_q, b_q, mult_a, shift_a, mult_b, shift_b) -> torch.Tensor:
     """Residual add on a common grid: requant each operand, saturating add."""
+    if _is_dtensor(a_q):
+        from repro_torch.runtime.activations import pointwise_local
+
+        return pointwise_local(lambda a, b: iadd_i8(a, b, mult_a, shift_a, mult_b, shift_b),
+                               a_q, b_q)
     a = requantize_wide(a_q, mult_a, shift_a, out_bits=16)
     b = requantize_wide(b_q, mult_b, shift_b, out_bits=16)
     return torch.clamp(a + b, -128, 127).to(torch.int8)
@@ -233,12 +303,17 @@ def _rope_cos_sin_host(positions, head_dim: int, theta: float):
 @functools.lru_cache(maxsize=32)
 def _rope_table(n: int, head_dim: int, theta: float, device: torch.device):
     """Q0.7 ``cos``/``sin`` tables of positions ``[0, n)``, int32 [n, half],
-    built on the host and moved to ``device`` once per key."""
-    cos, sin = _rope_cos_sin_host(np.arange(n), head_dim, theta)
-    scale = 1 << _ROPE_BITS
-    c_q = torch.clamp(torch.round(cos * scale), -127, 127).to(torch.int32)
-    s_q = torch.clamp(torch.round(sin * scale), -127, 127).to(torch.int32)
-    return c_q.to(device), s_q.to(device)
+    built on the host and moved to ``device`` once per key.  They are
+    constants: built outside any dispatch mode (a fake world's tensors or
+    an op recorder), so the cache holds real tables."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        cos, sin = _rope_cos_sin_host(np.arange(n), head_dim, theta)
+        scale = 1 << _ROPE_BITS
+        c_q = torch.clamp(torch.round(cos * scale), -127, 127).to(torch.int32)
+        s_q = torch.clamp(torch.round(sin * scale), -127, 127).to(torch.int32)
+        return c_q.to(device), s_q.to(device)
 
 
 def rope_tables_i8(positions, head_dim: int, theta: float, device=None):
@@ -249,11 +324,11 @@ def rope_tables_i8(positions, head_dim: int, theta: float, device=None):
     power of two past the largest one, built once per (size, head_dim,
     theta, device) by :func:`_rope_table`.
     """
-    pos = torch.as_tensor(np.asarray(positions), dtype=torch.int64)
-    top = int(pos.max()) + 1 if pos.numel() else 1
+    pos = np.asarray(positions, dtype=np.int64)
+    top = int(pos.max()) + 1 if pos.size else 1
     n = max(64, 1 << (top - 1).bit_length())
     c_tab, s_tab = _rope_table(n, head_dim, float(theta), torch.device(device or "cpu"))
-    idx = pos.to(c_tab.device)
+    idx = torch.from_numpy(pos).to(c_tab.device)
     return c_tab[idx], s_tab[idx]
 
 
@@ -263,6 +338,10 @@ def apply_rope_i8(x_q: torch.Tensor, c_q: torch.Tensor, s_q: torch.Tensor) -> to
     ``x_q`` int8 [B, H, S, D]; tables [S, D/2] or broadcastable.  The int32
     ``>>`` is arithmetic (floor), as XLA's, after adding 2^6 to round.
     """
+    if _is_dtensor(x_q):
+        from repro_torch.runtime.activations import pointwise_local
+
+        return pointwise_local(lambda x: apply_rope_i8(x, c_q, s_q), x_q)
     x = i32(x_q)
     half = x.shape[-1] // 2
     x1, x2 = x[..., :half], x[..., half:]
@@ -282,6 +361,10 @@ def isilu_i8(x_q: torch.Tensor, s_in: float, s_out: float) -> torch.Tensor:
     8-bit table, one integer division per element (both dividends and the
     divisor are positive, so torch's floor division is the reference's).
     """
+    if _is_dtensor(x_q):
+        from repro_torch.runtime.activations import pointwise_local
+
+        return pointwise_local(lambda x: isilu_i8(x, s_in, s_out), x_q)
     qp = make_qparams(s_in, 1.0, im.ITAMAX_LOGIT_SCALE)
     v = requantize_wide(x_q, qp.mult, qp.shift, out_bits=14)  # log-grid value
     t = torch.clamp(torch.abs(v), 0, 1 << 13)

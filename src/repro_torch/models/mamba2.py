@@ -22,7 +22,13 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.runtime.activations import constrain
+from repro_torch.runtime.activations import active_mesh, constrain, fits, local_shards
+from repro_torch.runtime.sharding import P, axis_names, data_axes
+
+try:
+    from torch.distributed.tensor import DTensor
+except ImportError:  # a torch built without distributed support
+    DTensor = ()
 
 D_CONV = 4  # depthwise causal conv width (Mamba default)
 N_GROUPS = 1
@@ -118,9 +124,30 @@ def ssd_chunked(x: torch.Tensor, dta: torch.Tensor, Bm: torch.Tensor, Cm: torch.
     return (y_diag + y_off).reshape(b, l, h, p), s
 
 
+def _ssd_local(x, dta, Bm, Cm, chunk: int, init_state=None):
+    """``ssd_chunked`` on each rank's shards (``local_shards``): the scan is
+    independent across batch rows (the data axes) and heads ("model",
+    where it divides them); B and C, shared by the heads, are whole on
+    each rank.  (As DTensor ops, its einsums view sharded dims as one,
+    which DTensor 2.11 refuses.)"""
+    mesh = active_mesh() or x.device_mesh
+    b, _, h, _ = x.shape
+    da = data_axes(mesh)
+    b_ax = da if fits(b, da, mesh) else None
+    h_ax = "model" if "model" in axis_names(mesh) and fits(h, "model", mesh) else None
+    xs, ss = P(b_ax, None, h_ax, None), P(b_ax, h_ax, None, None)
+    args = (x, dta, Bm, Cm) + (() if init_state is None else (init_state,))
+    specs = (xs, P(b_ax, None, h_ax), P(b_ax, None, None), P(b_ax, None, None), ss)
+    return local_shards(lambda *a: ssd_chunked(*a[:4], chunk, *a[4:]), args,
+                        specs[:len(args)], [xs, ss], mesh=mesh)
+
+
 def _in_proj(cfg: ArchConfig, bp: dict, u: torch.Tensor, conv_state):
     d_inner, n_heads, conv_dim = dims(cfg)
     h = L.norm_apply("rmsnorm", bp["norm"], u)
+    # gather the sequence before the projection, as at the transformer's
+    # Megatron-SP boundary: the product views [B, S] as one dim
+    h = constrain(h, "gathered")
     zxbcdt = L.linear(bp["in_proj"], h)
     z, xbc, dt_raw = torch.split(zxbcdt, [d_inner, conv_dim, n_heads], dim=-1)
     xbc, new_conv = _conv1d_causal(xbc, bp["conv_w"], bp["conv_b"], conv_state)
@@ -131,7 +158,7 @@ def _in_proj(cfg: ArchConfig, bp: dict, u: torch.Tensor, conv_state):
 
 def _out(bp: dict, u: torch.Tensor, y: torch.Tensor, z: torch.Tensor):
     y = L.norm_apply("rmsnorm", bp["out_norm"], y * L.silu(z))
-    return u + L.linear(bp["out_proj"], y)
+    return u + constrain(L.linear(bp["out_proj"], y), "residual")
 
 
 def block_forward(cfg: ArchConfig, bp: dict, u: torch.Tensor, conv_state=None, ssm_state=None):
@@ -152,7 +179,10 @@ def block_forward(cfg: ArchConfig, bp: dict, u: torch.Tensor, conv_state=None, s
             F.pad(Cm, (0, 0, 0, pad))
     else:
         Bm_p, Cm_p = Bm, Cm
-    y, new_ssm = ssd_chunked(xd, dta, Bm_p, Cm_p, chunk, ssm_state)
+    if isinstance(xd, DTensor):
+        y, new_ssm = _ssd_local(xd, dta, Bm_p, Cm_p, chunk, ssm_state)
+    else:
+        y, new_ssm = ssd_chunked(xd, dta, Bm_p, Cm_p, chunk, ssm_state)
     y = y[:, :s] + bp["D"][None, None, :, None] * x
     return _out(bp, u, y.reshape(b, s, d_inner), z), new_conv, new_ssm
 
@@ -193,11 +223,12 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32, device=None
 
 
 def _head(params: dict, x: torch.Tensor) -> torch.Tensor:
-    return L.norm_apply("rmsnorm", params["final_norm"], x) @ params["lm_head"]["w"]
+    x = constrain(L.norm_apply("rmsnorm", params["final_norm"], x), "gathered")
+    return L.matmul(x, params["lm_head"]["w"])
 
 
 def forward(cfg: ArchConfig, params: dict, batch: dict, **_) -> torch.Tensor:
-    x = params["embed"]["table"][batch["tokens"].long()]
+    x = L.embed_lookup(params["embed"]["table"], batch["tokens"])
     for bp in params["layers"]:
         x = constrain(x, "residual")
         x, _, _ = block_forward(cfg, bp, x)
@@ -216,14 +247,14 @@ def init_cache(cfg: ArchConfig, batch: int, dtype=torch.float32, device=None) ->
                             device=device),
         "ssm": torch.zeros((cfg.n_layers, batch, n_heads, cfg.ssm_head_dim, cfg.ssm_state),
                            dtype=dtype, device=device),
-        "len": torch.zeros((), dtype=torch.int32),
+        "len": torch.tensor(0, dtype=torch.int32),
     }
 
 
 def prefill(cfg: ArchConfig, params: dict, batch: dict, max_len: int = 0):
     """The prompt's forward, capturing each block's states.  Returns the
     last-token logits [B, 1, vocab_padded] and the cache."""
-    x = params["embed"]["table"][batch["tokens"].long()]
+    x = L.embed_lookup(params["embed"]["table"], batch["tokens"])
     convs, ssms = [], []
     for bp in params["layers"]:
         x, conv, ssm = block_forward(cfg, bp, x)
@@ -236,7 +267,7 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, max_len: int = 0):
 
 def decode_step(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor):
     """One token [B, 1].  Returns the logits [B, 1, vocab_padded] and a new cache."""
-    x = params["embed"]["table"][token.long()]
+    x = L.embed_lookup(params["embed"]["table"], token)
     convs, ssms = [], []
     for l, bp in enumerate(params["layers"]):
         x, conv, ssm = block_decode(cfg, bp, x, cache["conv"][l], cache["ssm"][l])

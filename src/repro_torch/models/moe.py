@@ -30,7 +30,13 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.quant_linear import ACT_IDENTITY  # noqa: F401  (the reference's name)
 from repro_torch.models import layers as L
 from repro_torch.quant.qparams import i32, imatmul, make_qparams, requantize
-from repro_torch.runtime.activations import constrain
+from repro_torch.runtime.activations import active_mesh, constrain, fits, local_shards
+from repro_torch.runtime.sharding import P, axis_names, data_axes, placements
+
+try:
+    from torch.distributed.tensor import DTensor, Partial
+except ImportError:  # a torch built without distributed support
+    DTensor = ()
 
 EP_PAD_TO = 16  # model-axis size of the reference's production mesh
 DISPATCH_GROUP = 1024  # tokens per dispatch group
@@ -113,7 +119,23 @@ def _top_k(probs: torch.Tensor, k: int):
 
 def _route(cfg: ArchConfig, router_w: torch.Tensor, h_f32: torch.Tensor):
     """h [G, g, D] -> dispatch [G, g, E, C] (0/1), combine [G, g, E, C]
-    float32, and the load-balance loss."""
+    float32, and the load-balance loss.  On DTensors each rank routes its
+    own groups (``local_shards``: routing is independent across groups),
+    and the loss averages the groups' terms as DTensor ops."""
+    if isinstance(h_f32, DTensor):
+        g_ax = _group_axes(h_f32)
+        spec = P(g_ax, None, None, None)
+        dispatch, combine, terms = local_shards(
+            lambda w, h: _route_groups(cfg, w, h), (router_w, h_f32),
+            (P(None, None), P(g_ax, None, None)), [spec, spec, P(g_ax)])
+    else:
+        dispatch, combine, terms = _route_groups(cfg, router_w, h_f32)
+    return dispatch, combine, terms.mean() * cfg.n_experts
+
+
+def _route_groups(cfg: ArchConfig, router_w: torch.Tensor, h_f32: torch.Tensor):
+    """``_route`` of plain tensors, with the load-balance loss as its [G]
+    per-group terms."""
     e = n_experts_padded(cfg)
     n_g, g_tokens, _ = h_f32.shape
     cap = capacity(cfg, g_tokens)
@@ -134,16 +156,33 @@ def _route(cfg: ArchConfig, router_w: torch.Tensor, h_f32: torch.Tensor):
     zeros = torch.zeros((n_g, g_tokens, e * cap), dtype=torch.float32, device=h_f32.device)
     dispatch = zeros.scatter(2, cell, keep.to(torch.float32)).reshape(n_g, g_tokens, e, cap)
     combine = zeros.scatter(2, cell, topv * keep).reshape(n_g, g_tokens, e, cap)
-    aux = _load_balance_loss(probs[..., : cfg.n_experts],
-                             onehot[..., : cfg.n_experts].to(torch.float32))
-    return dispatch, combine, aux
+    terms = _load_balance_terms(probs[..., : cfg.n_experts],
+                                onehot[..., : cfg.n_experts].to(torch.float32))
+    return dispatch, combine, terms
 
 
-def _load_balance_loss(probs: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
-    """Switch-style auxiliary load-balancing loss."""
+def _load_balance_terms(probs: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
+    """Switch-style auxiliary load-balancing loss: its [G] per-group terms
+    (the loss is their mean times the experts)."""
     density = onehot.sum(2).mean(1)  # [G, E] fraction routed
     density_proxy = probs.mean(1)  # [G, E] mean router probability
-    return (density * density_proxy).sum(-1).mean() * probs.shape[-1]
+    return (density * density_proxy).sum(-1)
+
+
+def _group_axes(x):
+    """The data axes a DTensor of groups [G, ...] splits its groups over."""
+    mesh = active_mesh() or x.device_mesh
+    da = data_axes(mesh)
+    return da if fits(x.shape[0], da, mesh) else None
+
+
+def _expert_axis(x, n_experts: int):
+    """"model" where it splits the experts of ``x``'s mesh evenly, else None."""
+    mesh = active_mesh() or x.device_mesh
+    names = axis_names(mesh)
+    if "model" not in names or mesh.size(names.index("model")) == 1:
+        return None
+    return "model" if fits(n_experts, "model", mesh) else None
 
 
 def _group(x: torch.Tensor, g: int):
@@ -163,16 +202,35 @@ def moe_ffn(cfg: ArchConfig, p: dict, h: torch.Tensor):
     b, s, d = h.shape
     grouped, _ = _group(h.reshape(b * s, d), DISPATCH_GROUP)
     dispatch, combine, aux = _route(cfg, p["router"]["w"], grouped.to(torch.float32))
-    xe = torch.einsum("gtec,gtd->gecd", dispatch.to(h.dtype), grouped)
-    xe = constrain(xe, "experts")
     ex = p["experts"]
-    ge = torch.einsum("gecd,edf->gecf", xe, ex["gate"])
-    ue = torch.einsum("gecd,edf->gecf", xe, ex["up"])
-    ye = torch.einsum("gecf,efd->gecd", L.silu(ge) * ue, ex["down"])
-    out = torch.einsum("gtec,gecd->gtd", combine.to(h.dtype), ye).reshape(b, s, d)
+    args = (dispatch, combine, grouped, ex["gate"], ex["up"], ex["down"])
+    if isinstance(grouped, DTensor):
+        # expert parallelism on each rank's shards: a rank runs its own
+        # experts ("model") on its groups (the data axes), and the rows of
+        # each token are a sum over the experts' ranks still to reduce
+        mesh = active_mesh() or grouped.device_mesh
+        g_ax, e_ax = _group_axes(grouped), _expert_axis(grouped, ex["gate"].shape[0])
+        route, w = P(g_ax, None, e_ax, None), P(e_ax, None, None)
+        out_pl = tuple(Partial() if e_ax and n == "model" else pl for n, pl in zip(
+            axis_names(mesh), placements(mesh, P(g_ax, None, None))))
+        out = local_shards(_experts_f32, args, (route, route, P(g_ax, None, None), w, w, w),
+                           out_pl, mesh=mesh)
+    else:
+        out = _experts_f32(*args)
+    out = out.reshape(b, s, d)
     if "shared" in p:
         out = out + L.mlp_forward(p["shared"], h, "swiglu")
     return out, aux
+
+
+def _experts_f32(dispatch, combine, grouped, gate, up, down):
+    """Dispatch -> the experts' SwiGLU -> combine, of plain tensors."""
+    xe = torch.einsum("gtec,gtd->gecd", dispatch.to(grouped.dtype), grouped)
+    xe = constrain(xe, "experts")
+    ge = torch.einsum("gecd,edf->gecf", xe, gate)
+    ue = torch.einsum("gecd,edf->gecf", xe, up)
+    ye = torch.einsum("gecf,efd->gecd", L.silu(ge) * ue, down)
+    return torch.einsum("gtec,gecd->gtd", combine.to(grouped.dtype), ye)
 
 
 # ---------------------------------------------------------------------------
@@ -234,8 +292,26 @@ def moe_ffn_w8a8(cfg: ArchConfig, lp: dict, h_q: torch.Tensor, q: L.QuantConfig)
     grouped, _ = _group(h_q.reshape(b * s, d), DISPATCH_GROUP)
     h_f32 = grouped.to(torch.float32) * q.s_act
     dispatch, combine, _ = _route(cfg, lp["router"]["w"], h_f32)
-    ye = _experts_w8a8(lp["experts"], grouped, dispatch, q)
-    out_q = _combine_w8a8(combine, ye, q, cfg.top_k).reshape(b, s, d)
+    if isinstance(grouped, DTensor):
+        # each rank runs its own experts on its groups; the combine then
+        # takes every expert's rows, in the unsharded order (bit-exact)
+        mesh = active_mesh() or grouped.device_mesh
+        ex = lp["experts"]
+        g_ax, e_ax = _group_axes(grouped), _expert_axis(grouped, ex["gate_q"].shape[0])
+        w = P(e_ax, None, None)
+        ye = local_shards(
+            lambda gate_q, up_q, down_q, g, dsp: _experts_w8a8(
+                {"gate_q": gate_q, "up_q": up_q, "down_q": down_q}, g, dsp, q),
+            (ex["gate_q"], ex["up_q"], ex["down_q"], grouped, dispatch),
+            (w, w, w, P(g_ax, None, None), P(g_ax, None, e_ax, None)),
+            P(g_ax, e_ax, None, None), mesh=mesh)
+        whole = P(g_ax, None, None, None)
+        out_q = local_shards(lambda c, y: _combine_w8a8(c, y, q, cfg.top_k), (combine, ye),
+                             (whole, whole), P(g_ax, None, None), mesh=mesh)
+    else:
+        ye = _experts_w8a8(lp["experts"], grouped, dispatch, q)
+        out_q = _combine_w8a8(combine, ye, q, cfg.top_k)
+    out_q = out_q.reshape(b, s, d)
     if "shared" in lp:
         site = L.QLinearSite(q.s_act, q.s_w, q.s_act)
         qprod = make_qparams(q.s_act, q.s_act, q.s_act)

@@ -30,6 +30,7 @@ DTensor activations as the reference constrains its arrays.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -47,7 +48,13 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.quant.fake_quant import fake_quant_weight
 from repro_torch.quant.qparams import i32, imatmul, make_qparams, requantize
+from repro_torch.runtime import activations as A
 from repro_torch.runtime.activations import constrain
+
+try:
+    from torch.distributed.tensor import DTensor
+except ImportError:  # a torch built without distributed support
+    DTensor = ()
 
 _S_GAMMA = 1.0 / 64.0  # shape-only norm gain grid (g_q=64 -> gamma=1.0)
 
@@ -101,6 +108,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32, device=None
 
 
 def _split_heads(qkv: torch.Tensor, cfg: ArchConfig):
+    if isinstance(qkv, DTensor):
+        return _heads_local(qkv, lambda t: _split_heads(t, cfg), 3)
     b, s, _ = qkv.shape
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = torch.split(qkv, [h * d, hkv * d, hkv * d], dim=-1)
@@ -111,8 +120,27 @@ def _split_heads(qkv: torch.Tensor, cfg: ArchConfig):
 
 
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    if isinstance(x, DTensor):
+        return _heads_local(x, _merge_heads, 1)
     b, h, s, d = x.shape
     return x.permute(0, 2, 1, 3).reshape(b, s, h * d)
+
+
+def _heads_local(x, fn, n_out: int):
+    """``fn`` (a split into or a merge of heads) on each rank's batch rows:
+    DTensor's views of permuted tensors lose their layout in the backward
+    (a gradient whose strides say one layout and whose local tensor has
+    another), so no permuted DTensor is made.  Heads and features are
+    whole on each rank; the constraints place them after."""
+    from repro_torch.runtime.sharding import P, data_axes
+
+    mesh = A.active_mesh() or x.device_mesh
+    da = data_axes(mesh)
+    b_ax = da if A.fits(x.shape[0], da, mesh) else None
+    spec = P(b_ax, *([None] * (x.dim() - 1)))
+    out_dim = 4 if x.dim() == 3 else 3
+    out = P(b_ax, *([None] * (out_dim - 1)))
+    return A.local_shards(fn, (x,), (spec,), [out] * n_out if n_out > 1 else out, mesh=mesh)
 
 
 _CHUNKED_ATTN_MIN_SEQ = 2048  # float path: Q-blocked attention from here on
@@ -144,7 +172,9 @@ def attn_block(cfg: ArchConfig, lp: dict, x: torch.Tensor, positions, *, qat: bo
     else:
         out = attention_f32(q, k, v, causal=causal, logit_clip=clip)
     out = constrain(out, "heads")
-    return x + L.linear(wo, _merge_heads(out))
+    # the sublayer's output on the residual's placements before the add: its
+    # gradient then reaches the product gathered, which any DTensor views
+    return x + constrain(L.linear(wo, _merge_heads(out)), "residual")
 
 
 def mlp_block(cfg: ArchConfig, lp: dict, x: torch.Tensor):
@@ -153,9 +183,9 @@ def mlp_block(cfg: ArchConfig, lp: dict, x: torch.Tensor):
     h = constrain(h, "gathered")
     if cfg.n_experts:
         out, aux = moe_mod.moe_ffn(cfg, lp["mlp"], h)
-        return x + out, aux
+        return x + constrain(out, "residual"), aux
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + L.mlp_forward(lp["mlp"], h, cfg.mlp), aux
+    return x + constrain(L.mlp_forward(lp["mlp"], h, cfg.mlp), "residual"), aux
 
 
 def layer_fwd(cfg: ArchConfig, lp: dict, x: torch.Tensor, positions, *, qat: bool = False,
@@ -165,7 +195,7 @@ def layer_fwd(cfg: ArchConfig, lp: dict, x: torch.Tensor, positions, *, qat: boo
 
 
 def embed_input(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
-    x = params["embed"]["table"][batch["tokens"].long()]
+    x = L.embed_lookup(params["embed"]["table"], batch["tokens"])
     if cfg.family == "vlm" and "patches" in batch:
         # anyres stub: precomputed patch embeddings prepended to the text
         x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
@@ -174,9 +204,13 @@ def embed_input(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
 
 def lm_head(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     x = L.norm_apply(cfg.norm, params["final_norm"], x)
+    # gather the sequence before the vocab-parallel product: the product
+    # views [B, S] as one dim, which DTensor 2.11 refuses for a batch and
+    # a sequence both sharded
+    x = constrain(x, "gathered")
     if cfg.tie_embeddings:
-        return x @ params["embed"]["table"].T
-    return x @ params["lm_head"]["w"]
+        return L.matmul(x, params["embed"]["table"].T)
+    return L.matmul(x, params["lm_head"]["w"])
 
 
 def forward(cfg: ArchConfig, params: dict, batch: dict, *, qat: bool = False,
@@ -221,7 +255,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.float32,
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
-        "len": torch.zeros((), dtype=torch.int32),
+        "len": torch.tensor(0, dtype=torch.int32),
     }
 
 
@@ -249,7 +283,7 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor)
     """One-token float decode (every request at depth ``cache["len"]``).
     token [B, 1] int.  Returns the logits [B, 1, vocab_padded] and a new
     cache."""
-    x = params["embed"]["table"][token.long()]
+    x = L.embed_lookup(params["embed"]["table"], token)
     pos = int(cache["len"])
     smax = cache["k"].shape[3]
     mask = (torch.arange(smax, device=x.device) <= pos)[None, None, None, :]
@@ -438,7 +472,7 @@ def qlayer_fwd(
 
 
 def embed_input_w8a8(cfg: ArchConfig, qp: dict, batch: dict) -> torch.Tensor:
-    x_q = qp["embed"]["table_q"][batch["tokens"].long()]
+    x_q = L.embed_lookup(qp["embed"]["table_q"], batch["tokens"])
     if cfg.family == "vlm" and "patches" in batch:
         # the frontend stub delivers pre-quantized int8 patch embeddings
         x_q = torch.cat([batch["patches"].to(torch.int8), x_q], dim=1)
@@ -463,18 +497,20 @@ def forward_w8a8(cfg: ArchConfig, qp: dict, batch: dict,
     """Integer causal forward of the whole sequence: dequantized logits
     [B, S, vocab_padded] (the layers of ``prefill_w8a8`` with no cache)."""
     x_q = embed_input_w8a8(cfg, qp, batch)
-    positions = torch.arange(x_q.shape[1])
+    positions = np.arange(x_q.shape[1])
     for lp in qp["layers"]:
         x_q = qlayer_fwd(cfg, lp, x_q, positions, q)
     return lm_head_w8a8(cfg, qp, x_q, q)
 
 
 def init_cache_w8a8(cfg: ArchConfig, batch: int, max_len: int, device=None) -> dict:
+    """The int8 KV cache (placed as the cache rules place it when a
+    sharded prefill makes it under a policy: ``activations.zeros``)."""
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     return {
-        "k": torch.zeros(shape, dtype=torch.int8, device=device),
-        "v": torch.zeros(shape, dtype=torch.int8, device=device),
-        "len": torch.zeros((), dtype=torch.int32),
+        "k": A.zeros(shape, torch.int8, device, "kv_cache"),
+        "v": A.zeros(shape, torch.int8, device, "kv_cache"),
+        "len": torch.tensor(0, dtype=torch.int32),
     }
 
 
@@ -484,7 +520,7 @@ def prefill_w8a8(cfg: ArchConfig, qp: dict, batch: dict, max_len: int,
     last-token logits [B, 1, vocab_padded] and the cache."""
     x_q = embed_input_w8a8(cfg, qp, batch)
     b, s, _ = x_q.shape
-    positions = torch.arange(s)
+    positions = np.arange(s)  # host data
     cache = init_cache_w8a8(cfg, b, max_len, x_q.device)
     for l, lp in enumerate(qp["layers"]):
 
@@ -505,7 +541,7 @@ def decode_step_w8a8(cfg: ArchConfig, qp: dict, cache: dict, token: torch.Tensor
     ``cache["len"]``).  Runs the same ``qlayer_fwd`` as prefill: the KV
     override appends this step's K/V at row ``len`` of a copy of the
     cache, and ``kv_len`` masks the rows past it."""
-    x_q = qp["embed"]["table_q"][token.long()]
+    x_q = L.embed_lookup(qp["embed"]["table_q"], token)
     pos = int(cache["len"])
     b = x_q.shape[0]
     new_k, new_v = cache["k"].clone(), cache["v"].clone()

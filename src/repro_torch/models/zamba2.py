@@ -11,6 +11,7 @@ head_dim is 80).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
@@ -23,6 +24,7 @@ from repro_torch.core.attention import (
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as MB
 from repro_torch.models.transformer import _merge_heads, _split_heads
+from repro_torch.runtime import activations as A
 from repro_torch.runtime.activations import constrain
 
 S_HYB = 0.06  # static activation grid at the float <-> int8 boundary
@@ -68,14 +70,14 @@ def quantize_shared(shared: dict, scale: float = QSHARED_WSCALE) -> dict:
 
 
 def _shared_attn_f32(cfg: ArchConfig, sp: dict, x: torch.Tensor, positions) -> torch.Tensor:
-    h = L.norm_apply("rmsnorm", sp["norm1"], x)
+    h = constrain(L.norm_apply("rmsnorm", sp["norm1"], x), "gathered")
     q, k, v = _split_heads(L.linear(sp["wqkv"], h), cfg)
     cos, sin = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, x.dtype, x.device)
     q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
     out = attention_f32(q, k, v, causal=True)
-    x = x + L.linear(sp["wo"], _merge_heads(out))
-    h = L.norm_apply("rmsnorm", sp["norm2"], x)
-    return x + L.mlp_forward(sp["mlp"], h, "gelu")
+    x = x + constrain(L.linear(sp["wo"], _merge_heads(out)), "residual")
+    h = constrain(L.norm_apply("rmsnorm", sp["norm2"], x), "gathered")
+    return x + constrain(L.mlp_forward(sp["mlp"], h, "gelu"), "residual")
 
 
 def _quantize_act(x: torch.Tensor, scale: float) -> torch.Tensor:
@@ -123,12 +125,13 @@ def _shared_attn_i8(cfg: ArchConfig, sp: dict, sq: dict, x: torch.Tensor, positi
 
 
 def _head(params: dict, x: torch.Tensor) -> torch.Tensor:
-    return L.norm_apply("rmsnorm", params["final_norm"], x) @ params["lm_head"]["w"]
+    x = constrain(L.norm_apply("rmsnorm", params["final_norm"], x), "gathered")
+    return L.matmul(x, params["lm_head"]["w"])
 
 
 def forward(cfg: ArchConfig, params: dict, batch: dict, **_) -> torch.Tensor:
     """Float forward (the training path)."""
-    x = params["embed"]["table"][batch["tokens"].long()]
+    x = L.embed_lookup(params["embed"]["table"], batch["tokens"])
     positions = torch.arange(x.shape[1], device=x.device)
     for i, bp in enumerate(params["layers"]):
         x = constrain(x, "residual")
@@ -147,17 +150,17 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.float32,
                device=None) -> dict:
     cache = MB.init_cache(cfg, batch, dtype, device)
     shape = (n_sites(cfg), batch, cfg.n_kv_heads, max_len, cfg.head_dim)
-    cache["k"] = torch.zeros(shape, dtype=torch.int8, device=device)
-    cache["v"] = torch.zeros(shape, dtype=torch.int8, device=device)
+    cache["k"] = A.zeros(shape, torch.int8, device, "kv_cache")
+    cache["v"] = A.zeros(shape, torch.int8, device, "kv_cache")
     return cache
 
 
 def prefill(cfg: ArchConfig, params: dict, batch: dict, max_len: int, qshared: dict):
     """Serve prefill: the float trunk, the int8 shared attention and its
     int8 KV cache.  Returns the last-token logits and the cache."""
-    x = params["embed"]["table"][batch["tokens"].long()]
+    x = L.embed_lookup(params["embed"]["table"], batch["tokens"])
     b, s, _ = x.shape
-    positions = torch.arange(s)
+    positions = np.arange(s)  # host data
     cache = init_cache(cfg, b, max_len, x.dtype, x.device)
     convs, ssms = [], []
     for i, bp in enumerate(params["layers"]):
@@ -176,7 +179,7 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, max_len: int, qshared: d
 
 def decode_step(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor, qshared: dict):
     """One token [B, 1] against the cache.  Returns the logits and a new cache."""
-    x = params["embed"]["table"][token.long()]
+    x = L.embed_lookup(params["embed"]["table"], token)
     pos = int(cache["len"])
     kcache, vcache = cache["k"].clone(), cache["v"].clone()
     convs, ssms = [], []

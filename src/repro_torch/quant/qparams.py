@@ -90,11 +90,59 @@ def imatmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     ``int8 @ int8`` in torch returns int8 and wraps, so on the CPU both
     operands are widened to int32 first.  CUDA has no int32 matmul: there
-    the product goes through :func:`imatmul_exact`.
+    the product goes through :func:`imatmul_exact`.  DTensors (a sharded
+    serving step) take the product on each rank's shards
+    (:func:`_imatmul_sharded`).
     """
+    if _is_dtensor(a) or _is_dtensor(b):
+        return _imatmul_sharded(a, b)
     if a.is_cuda or b.is_cuda:
         return imatmul_exact(a, b)
     return torch.matmul(i32(a), i32(b))
+
+
+def _is_dtensor(t) -> bool:
+    return type(t).__name__ == "DTensor"
+
+
+def _imatmul_sharded(a, b) -> torch.Tensor:
+    """``imatmul`` of DTensors ``a [..., K]`` and a 2-D ``b [K, N]``, as
+    DTensor's ``mm`` places a product, on each rank's shards: on a mesh dim
+    that splits ``b``'s columns, ``a`` is whole and the result split by
+    column; on one that splits ``b``'s rows, ``a`` is split along K and the
+    int32 partial products are summed (wrapping as one int32 accumulator
+    does); elsewhere ``a`` keeps its row shards.  The local product is
+    ``imatmul`` itself, so its padding of few rows and its float64 path
+    see the local shapes (a decode step's 8 rows a rank, not the global
+    batch).  DTensor has no rule for ``torch._int_mm``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.runtime.activations import _as_dtensor, _reduced, local_shards
+
+    mesh = (a if isinstance(a, DTensor) else b).device_mesh
+    a, b = _reduced(_as_dtensor(a, mesh)), _reduced(_as_dtensor(b, mesh))
+    if b.dim() != 2:
+        raise NotImplementedError(
+            f"imatmul of DTensors takes a 2-D right operand, not {tuple(b.shape)}: batched "
+            "products run on local shards (core.attention, models.moe)")
+    ka = a.dim() - 1
+    pa, pb, po = [], [], []
+    for x, w in zip(a.placements, b.placements):
+        if w.is_shard(1):  # b's columns
+            pa.append(Replicate())
+            pb.append(w)
+            po.append(Shard(ka))
+        elif w.is_shard(0):  # b's rows: the contraction splits
+            pa.append(Shard(ka))
+            pb.append(w)
+            po.append(Partial())
+        else:
+            keep = x if x.is_shard() and x.dim != ka else Replicate()
+            pa.append(keep)
+            pb.append(Replicate())
+            po.append(keep)
+    out = local_shards(imatmul, (a, b), (tuple(pa), tuple(pb)), tuple(po), mesh=mesh)
+    return _reduced(out)
 
 
 #: float64 holds every integer of magnitude <= 2^53 exactly
@@ -225,6 +273,11 @@ def requantize(acc, mult, shift, zero_point=0, *, narrow=False) -> torch.Tensor:
     ``round(acc*mult / 2^shift) = (hi*mult + ((lo*mult + r) >> 10)) >> (shift-10)``
     with ``r = 2^(shift-1)``.
     """
+    if _is_dtensor(acc):  # each rank's shard (see activations.pointwise_local)
+        from repro_torch.runtime.activations import pointwise_local
+
+        return pointwise_local(lambda a: requantize(a, mult, shift, zero_point, narrow=narrow),
+                               acc)
     out = _requant_core(acc, mult, shift)
     qmin = INT8_MIN + 1 if narrow else INT8_MIN
     return (out + zero_point).clamp(qmin, INT8_MAX).to(torch.int8)
@@ -232,6 +285,11 @@ def requantize(acc, mult, shift, zero_point=0, *, narrow=False) -> torch.Tensor:
 
 def requantize_wide(acc, mult, shift, zero_point=0, out_bits=16) -> torch.Tensor:
     """Like :func:`requantize` but clipping to a wider signed width (int32 out)."""
+    if _is_dtensor(acc):  # each rank's shard (see activations.pointwise_local)
+        from repro_torch.runtime.activations import pointwise_local
+
+        return pointwise_local(lambda a: requantize_wide(a, mult, shift, zero_point, out_bits),
+                               acc)
     out = _requant_core(acc, mult, shift)
     lim = 1 << (out_bits - 1)
     return (out + zero_point).clamp(-lim, lim - 1).to(torch.int32)

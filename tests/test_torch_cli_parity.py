@@ -10,7 +10,9 @@
   config with experts with its detail;
 * every public name of a JAX package module (a function or class of the
   package, or a constant) is also a name of the port's twin module,
-  except the deliberate list below.  The port's own additions (the
+  except the deliberate list below;
+* ``dryrun`` without ``--via-plan`` (the multi-pod grid) parses the JAX
+  package's defaults.  The port's own additions (the
   device, the exact integer products, the kernels' launch geometry) are
   not compared.
 """
@@ -28,15 +30,15 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 #: names of the JAX package that the port does not carry, on purpose:
 #: the Pallas entry points and TPU constants, the JAX-only erf, and the
-#: multi-pod half of the dry run (ROADMAP's next port item)
+#: HLO-text parsing of the dry run's analysis (the port reads an op stream)
 DELIBERATE = {
+    "repro.deploy.hlo_analysis": {"Computation", "SKIP_MEMORY_OPS"},
     "repro.core.igelu": {"jax_erf"},
     "repro.deploy.tiler": {"TPU_GRANULE", "TPU_VMEM_BYTES"},
     "repro.kernels.igelu.ops": {"igelu_pallas"},
     "repro.kernels.int8_gemm.ops": {"int8_gemm_pallas"},
     "repro.kernels.ita_attention.ops": {"ita_attention_pallas"},
     "repro.kernels.itamax.ops": {"itamax_pallas"},
-    "repro.launch.dryrun": {"MICROBATCHES", "analyze_hlo", "build_cell", "run_cell"},
 }
 _SIMPLE = (int, float, str, bool, tuple, frozenset, set, dict, bytes)
 
@@ -198,3 +200,26 @@ def test_lower_names_experts_in_a_dense_config():
     with pytest.raises(TLow.UnsupportedFamilyError) as got:
         TLow.lower(tcfg)
     assert str(got.value) == str(want.value) and "n_experts=4 routes as MoE" in str(got.value)
+
+
+@pytest.mark.parametrize("argv", [[], ["--all", "--multi-pod", "both"],
+                                  ["--arch", "olmo-1b", "--shape", "train_4k"]])
+def test_dryrun_grid_defaults_equal_reference(monkeypatch, argv):
+    import argparse
+
+    seen = {}
+    parse = argparse.ArgumentParser.parse_args
+
+    def stop(self, *a, **kw):
+        seen["args"] = vars(parse(self, *a, **kw))
+        raise _Parsed
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", stop)
+    out = {}
+    for pkg in ("repro", "repro_torch"):
+        with pytest.raises(_Parsed):
+            importlib.import_module(f"{pkg}.launch.dryrun").main(argv)
+        out[pkg] = seen.pop("args")
+    want, got = out["repro"], out["repro_torch"]
+    assert {k: _plain(got[k]) for k in want} == {k: _plain(v) for k, v in want.items()}
+    assert got["via_plan"] is False and got["out_dir"] == "experiments/dryrun"

@@ -122,9 +122,19 @@ def test_cli_main_on_cpu(tmp_path, capsys):
         "mobilebert__via_plan__w8a8.json"}
 
 
-def test_cli_main_refuses_what_is_not_ported():
-    with pytest.raises(SystemExit, match="only --via-plan is ported"):
-        dryrun.main(["--arch", "mobilebert"])
+def test_cli_main_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys):
+    """Without ``--via-plan`` the multi-pod cells run (the grid is ported):
+    on a host with no card each applicable cell is recorded ``failed``
+    (no CPU fallback) and the exit code is 1; ``--via-plan`` still needs
+    ``--arch``."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc = dryrun.main(["--arch", "mobilebert", "--shape", "train_4k", "--out-dir",
+                      str(tmp_path)])
+    assert rc == 1 and "0 ok, 0 skipped (documented), 1 failed" in capsys.readouterr().out
+    rec = json.loads((tmp_path / "mobilebert__train_4k__16x16.json").read_text())
+    assert rec["status"] == "failed" and "no CUDA device" in rec["error"]
     with pytest.raises(SystemExit, match="requires --arch"):
         dryrun.main(["--via-plan"])
 

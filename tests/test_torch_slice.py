@@ -130,6 +130,7 @@ def test_import_leaves_no_jax():
         "import repro_torch.runtime.sharding, repro_torch.runtime.activations\n"
         "import repro_torch.runtime.pipeline, repro_torch.runtime.elastic\n"
         "import repro_torch.optim.compression, repro_torch.launch.mesh\n"
+        "import repro_torch.deploy.hlo_analysis\n"
         "repro_torch.kernels.wrappers()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
