@@ -209,7 +209,14 @@ exit code and no result line):
    difference printed), every param and AdamW leaf on the rules'
    placements, the step times side by side; (b) ``compressed_psum`` on
    the card over that group, bit-exact with ``compress`` -> ``decompress``
-   on the CPU; (c) 4 spawned ranks sharing the card over gloo (NCCL
+   on the CPU; (d) on that mesh, OLMo-1B at full width cut to 2 layers
+   through the sharded step under ``Supervisor(save_every=2)`` over 6
+   steps with a failure injected at step 3: losses, grad norms, params
+   and AdamW state equal the uninterrupted run's bit for bit, the last
+   checkpoint equals a plain tree's save key by key, ``restore(...,
+   shardings=)`` gives the saved values on the rules' placements; its
+   GB, the seconds of ``save_async``'s return, a synchronous save and a
+   restore printed; (c) 4 spawned ranks sharing the card over gloo (NCCL
    takes one rank a GPU): ``compressed_psum`` on CUDA tensors bit-exact
    with the same ranks on CPU tensors, and ``pipelined_apply`` over 4
    stages (sends staged through the host) within 1e-5 of the layers
@@ -224,7 +231,7 @@ exit code and no result line):
    ``python -m repro_torch.launch.dryrun --arch A --shape S [--multi-pod
    on]`` for each of ``MULTIPOD_CELLS`` in a fake 256- or 512-rank world
    of its own (``MULTIPOD_JOBS`` at a time; ``MULTIPOD_EARLY``, the
-   costliest, started niced when the script starts), every record ``ok``,
+   costliest, each started niced when the script starts), every record ``ok``,
    its flops, collective bytes by op, argument and temp bytes a rank and
    host seconds printed.
 
@@ -2768,6 +2775,15 @@ DIST_PSUM = (4, 2048)
 #: layers is left out: a rank died of SIGSEGV in it over gloo (ROADMAP.md
 #: section 3, PERF.md section 6)
 DIST_SPAWN = dict(world=4, pipe_d=2048, pipe_batch=16, timeout=300)
+#: (d): checkpoint/restart around the sharded step on (a)'s 1x1 mesh:
+#: OLMo-1B at full width (d 2048, vocab 50304) cut to 2 layers (237.5 M
+#: params, 2.85 GB with the AdamW moments, so a save takes seconds; [train]
+#: trains full depth), (a)'s batches of 4 x 128; Supervisor(save_every=2)
+#: over 6 steps with one failure injected at step 3, against the same 6
+#: steps uninterrupted.  The multi-rank saves and restores (8 -> 4 ranks)
+#: run on gloo CPU ranks in tests/test_torch_distributed.py: over gloo an
+#: all-gather of CUDA tensors kills the rank (ROADMAP.md section 3)
+DIST_CKPT = dict(n_layers=2, save_every=2, steps=6, fail_at=3)
 
 
 def _olmo_steps_on(torch, api, params, batches, step_fn, sync):
@@ -2844,11 +2860,186 @@ def _dist_rank(rank: int, world: int, out: str, dev_type: str) -> None:
     torch.save(res, Path(out) / f"rank{rank}.pt")
 
 
+def _dist_checkpoint(torch, card: str, dev, mesh, cfg, dcfg, cell, sync) -> None:
+    """[distributed] (d): a Supervisor restart around shard_train_fn's step
+    on ``mesh`` against the uninterrupted run, bit for bit; the last save
+    key by key against a plain tree's of the same values; the restore by
+    the rules' placements.  On the CPU under
+    ``torch.use_deterministic_algorithms``: its threaded
+    ``index_put_(accumulate=True)`` (the embedding's backward) sums a
+    repeated token's rows in a varying order (ROADMAP.md section 3)."""
+    on_cpu = dev.type == "cpu"
+    if on_cpu:
+        torch.use_deterministic_algorithms(True)
+    try:
+        _dist_checkpoint_runs(torch, card, dev, mesh, cfg, dcfg, cell, sync)
+    finally:
+        if on_cpu:
+            torch.use_deterministic_algorithms(False)
+
+
+def _dist_checkpoint_runs(torch, card: str, dev, mesh, cfg, dcfg, cell, sync) -> None:
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.checkpoint.checkpointer import _host_flat
+    from repro_torch.data import make_batch
+    from repro_torch.launch.train import make_train_step, shard_train_fn
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.activations import activation_policy
+    from repro_torch.runtime.fault import Supervisor
+    from repro_torch.runtime.sharding import gather, opt_state_shardings, param_shardings
+
+    cfg = cfg.replace(n_layers=DIST_CKPT["n_layers"])
+    train_step = make_train_step(build(cfg), remat=True)
+    on_card = dev.type == "cuda"
+
+    def batch_fn(s):
+        return _train_batch(torch, make_batch(cfg, cell, dcfg, s), dev)
+
+    def start():
+        p = build(cfg).init_params(SEED, device=None if on_card else dev)
+        o = adamw.init(p)
+        sstep = shard_train_fn(train_step, mesh, p, o, batch_fn(0))
+
+        def step_fn(state, batch):
+            with activation_policy(mesh):
+                p, o, m = sstep(*state, batch)
+            return (p, o), m
+
+        return step_fn, (p, o)
+
+    class Timed(Checkpointer):
+        """The Supervisor's checkpointer, timing each save_async: the wait
+        for the previous save's writer, then the return (gather, host copy)."""
+
+        def __init__(self, directory):
+            super().__init__(directory)
+            self.waits, self.returns = [], []
+
+        def save_async(self, step, tree):
+            t0 = time.perf_counter()
+            self.wait()
+            t1 = time.perf_counter()
+            super().save_async(step, tree)
+            self.waits.append(t1 - t0)
+            self.returns.append(time.perf_counter() - t1)
+
+    def local(t):
+        return t.to_local() if isinstance(t, DTensor) else t
+
+    t_d = time.perf_counter()
+    step_fn, state = start()
+    plain = []
+    for s in range(DIST_CKPT["steps"]):
+        state, m = step_fn(state, batch_fn(s))
+        plain.append((float(m["loss"]), float(m["grad_norm"])))
+    t_plain = time.perf_counter() - t_d
+    want = [local(t).clone() for t in _state_leaves(state)]
+    del state, step_fn
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="dist-ckpt-", dir=ROOT / "build"))
+    try:
+        failed = []
+
+        def inject(s):
+            if s == DIST_CKPT["fail_at"] and not failed:
+                failed.append(s)
+                raise RuntimeError(f"failure injected at step {s}")
+
+        step_fn, state = start()
+        ck = Timed(str(work / "restart"))
+        t0 = time.perf_counter()
+        state, history = Supervisor(ck, save_every=DIST_CKPT["save_every"]).run(
+            step_fn, state, batch_fn, 0, DIST_CKPT["steps"], inject_failure=inject)
+        t_run = time.perf_counter() - t0
+        steps = [s for s, _ in history]
+        require(failed == [DIST_CKPT["fail_at"]] and steps == [0, 1, 2, 2, 3, 4, 5],
+                f"(d) the supervised run's steps: {steps} (failed at {failed})")
+        got = [(float(m["loss"]), float(m["grad_norm"])) for _, m in history]
+        require(got == [plain[s] for s in steps],
+                f"(d) the restarted run's losses and grad norms {got} differ from the "
+                f"uninterrupted run's {plain}")
+        leaves = [local(t) for t in _state_leaves(state)]
+        require(len(leaves) == len(want) and all(
+            a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(leaves, want)),
+            "(d) the restarted run's params or AdamW state differ from the uninterrupted run's")
+        last = DIST_CKPT["steps"]
+        names = sorted(p.name for p in (work / "restart").iterdir())
+        require(names == ["LATEST", "step_2", "step_4", f"step_{last}"] and ck.latest_step()
+                == last, f"(d) the checkpoint directory holds {names}")
+        size = sum(f.stat().st_size for f in (work / "restart" / f"step_{last}").iterdir())
+
+        # a synchronous save of the sharded state (timed; its barrier ends it)
+        sync()
+        t0 = time.perf_counter()
+        Checkpointer(str(work / "sync")).save(last, state)
+        t_save = time.perf_counter() - t0
+
+        # the supervised run's last save against what one process writes
+        # from the same values as plain tensors (its host arrays and
+        # manifest, held in memory)
+        t0 = time.perf_counter()
+        arrays, dtypes = _host_flat(gather(state))
+        manifest = {"step": last, "leaves": {k: {"shape": list(v.shape), "dtype": dtypes[k]}
+                                              for k, v in arrays.items()}}
+        a = work / "restart" / f"step_{last}"
+        require(json.loads((a / "manifest.json").read_text()) == manifest,
+                "(d) the sharded save's manifest differs from a plain tree's")
+        with np.load(a / "host0.npz") as fa:
+            require(fa.files == list(arrays), "(d) the sharded save's keys differ")
+            bad = [k for k in fa.files if not (fa[k].dtype == arrays[k].dtype
+                                               and np.array_equal(fa[k], arrays[k]))]
+            n_keys = len(fa.files)
+        del arrays
+        require(not bad, f"(d) arrays differ from a plain tree's save: {bad[:5]}")
+        t_compare = time.perf_counter() - t0
+
+        # restore by the rules' placements
+        p_sh = param_shardings(mesh, state[0])
+        shardings = (p_sh, opt_state_shardings(mesh, state[1], p_sh))
+        t0 = time.perf_counter()
+        step, back = ck.restore_latest(state, shardings=shardings)
+        sync()
+        t_restore = time.perf_counter() - t0
+        placed = list(zip(_state_leaves(back), _state_leaves(shardings)))
+        require(step == last and all(isinstance(t, DTensor) and tuple(t.placements)
+                                     == sh.placements for t, sh in placed),
+                f"(d) restore(shardings=) at step {step}: not on the rules' placements")
+        require(all(torch.equal(local(t), w) for (t, _), w in zip(placed, want)),
+                "(d) the restored state differs from the saved one")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"  [distributed] (d) {cfg.name} (d {cfg.d_model}, vocab {cfg.vocab}, cut to "
+        f"{cfg.n_layers} layers; batch {dcfg.global_batch} x {dcfg.seq_len}, remat) through "
+        f"shard_train_fn on the {tuple(mesh.shape)} mesh under Supervisor(save_every="
+        f"{DIST_CKPT['save_every']}): a failure at step {DIST_CKPT['fail_at']} restored step 2 "
+        f"and replayed it; the {DIST_CKPT['steps']} steps equal the uninterrupted run bit for "
+        f"bit (losses, grad norms, params, AdamW moments and step); a checkpoint {size / 1e9:.3f} "
+        f"GB ({n_keys} keys), equal key by key to one process's save of the same values as "
+        f"plain tensors; save_async returned in "
+        f"{', '.join(f'{t:.3f}' for t in ck.returns)} s (gather and host copy; before each, "
+        f"{', '.join(f'{t:.3f}' for t in ck.waits)} s waiting for the previous writer), a "
+        f"synchronous "
+        f"save {t_save:.3f} s, restore(shardings=) {t_restore:.3f} s onto the rules' "
+        f"placements, equal to the saved state; (d) took {time.perf_counter() - t_d:.1f}s: the "
+        f"uninterrupted run {t_plain:.1f}s, the supervised run {t_run:.1f}s, the key-by-key "
+        f"comparison (the last save read back against the gathered state's host arrays) "
+        f"{t_compare:.1f}s; on {card}")
+
+
 def distributed_phase(torch, card: str, dev, reduced_cfg: bool = False) -> dict[str, int]:
     """The distributed runtime: (a) OLMo-1B's full train step through
     shard_train_fn on a world of one over NCCL, equal to the unsharded
     step, (b) compressed_psum on the card over that group, bit-exact with
-    compress -> decompress on the CPU, (c) 4 spawned ranks on the card over
+    compress -> decompress on the CPU, (d) checkpoint/restart around the
+    sharded step on that mesh, (c) 4 spawned ranks on the card over
     gloo."""
     import shutil
     import tempfile
@@ -2956,6 +3147,10 @@ def distributed_phase(torch, card: str, dev, reduced_cfg: bool = False) -> dict[
             f"{backend} world of one: bit-exact with compress -> decompress on the CPU "
             f"(output and error feedback); on {card}")
         _take(wrappers, launches, dev, {}, "(b) compressed_psum")
+
+        # (d) checkpoint/restart around the sharded step
+        _dist_checkpoint(torch, card, dev, mesh, cfg, dcfg, cell, sync)
+        _take(wrappers, launches, dev, {}, "(d) sharded checkpoint/restart")
     finally:
         dist.destroy_process_group()
         if on_card:
@@ -2999,44 +3194,47 @@ def distributed_phase(torch, card: str, dev, reduced_cfg: bool = False) -> dict[
 #: [multipod] (i): multi-pod dry-run cells, each ``python -m
 #: repro_torch.launch.dryrun --arch A --shape S [--multi-pod on]`` in a fake
 #: world of its own on the card's device type: each group of open fault 1
-#: (dense, MoE, SSM, VLM), GQA heads over 16 model ranks (llava 56/8,
-#: granite 24/8), the int8 products on DTensors (OLMo-1B prefill and
-#: decode), the sequence-sharded cache (zamba2 long_500k) and one cell of
-#: the two-pod mesh; run MULTIPOD_JOBS at a time
+#: (dense, MoE, SSM, and the VLM in MULTIPOD_EARLY), GQA heads over 16
+#: model ranks (llava 56/8, granite 24/8), the int8 products on DTensors
+#: (OLMo-1B prefill and decode), the sequence-sharded cache (zamba2
+#: long_500k) and one cell of the two-pod mesh; run MULTIPOD_JOBS at a time
 MULTIPOD_CELLS = [("olmo-1b", "train_4k", False), ("qwen2-moe-a2.7b", "train_4k", False),
-                  ("mamba2-370m", "train_4k", False), ("llava-next-34b", "train_4k", False),
+                  ("mamba2-370m", "train_4k", False),
                   ("granite-moe-3b-a800m", "train_4k", False), ("olmo-1b", "prefill_32k", False),
                   ("olmo-1b", "decode_32k", False), ("mamba2-370m", "decode_32k", True)]
 MULTIPOD_JOBS = 8
-#: the costliest cell (4-5 min of host time: 1024 KV blocks at each of 9
-#: sites) starts as the script does, at the lowest CPU priority, in a
-#: child of its own (host work only: its tensors are fake), and
-#: [multipod] collects its record
-MULTIPOD_EARLY = ("zamba2-2.7b", "long_500k", False)
+#: the costliest cells (zamba2 long_500k, 4-5 min of host time: 1024 KV
+#: blocks at each of 9 sites; llava train_4k, 2-3.5 min) start as the
+#: script does, at the lowest CPU priority, each in a child of its own
+#: (host work only: their tensors are fake), and [multipod] collects their
+#: records
+MULTIPOD_EARLY = [("zamba2-2.7b", "long_500k", False), ("llava-next-34b", "train_4k", False)]
 MULTIPOD_DIR = ROOT / "build" / "multipod"
 
 
-def start_early_cell(dev_type: str):
-    """``MULTIPOD_EARLY``'s CLI child, niced; [multipod] waits for it, and
-    it is stopped at exit if the script ends first."""
+def start_early_cells(dev_type: str) -> list:
+    """``MULTIPOD_EARLY``'s CLI children, niced, as ``(cell, child)``;
+    [multipod] waits for them, and they are stopped at exit if the script
+    ends first."""
     import atexit
     import os
 
-    arch, shape, pod = MULTIPOD_EARLY
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    child = subprocess.Popen(
-        ["nice", "-n", "19", sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape, "--multi-pod", "on" if pod else "off", "--out-dir", str(MULTIPOD_DIR),
-         "--device", dev_type],
-        cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    children = [(cell, subprocess.Popen(
+        ["nice", "-n", "19", sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         cell[0], "--shape", cell[1], "--multi-pod", "on" if cell[2] else "off", "--out-dir",
+         str(MULTIPOD_DIR), "--device", dev_type],
+        cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
+        for cell in MULTIPOD_EARLY]
 
     def stop():
-        if child.poll() is None:
-            child.kill()
-            child.wait()
+        for _, child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
 
     atexit.register(stop)
-    return child
+    return children
 
 
 #: [multipod] (ii): [distributed] (a)'s step (OLMo-1B, float32, 4 x 128,
@@ -3109,7 +3307,7 @@ def _tie_child(dev_type: str) -> None:
     print("TIE_JSON " + json.dumps(_tie_step(torch, dev_type, fake=True)))
 
 
-def multipod_phase(torch, card: str, dev, early=None) -> dict[str, int]:
+def multipod_phase(torch, card: str, dev, early=()) -> dict[str, int]:
     """The multi-pod dry run: (i) cells of the reference's grid through
     the CLI in fake 256 / 512-rank worlds, each ``ok``; (ii) the analysis
     of [distributed] (a)'s step in a fake world of one equal, op for op,
@@ -3198,13 +3396,12 @@ def multipod_phase(torch, card: str, dev, early=None) -> dict[str, int]:
         runner.join()  # every child of (i) ends before the phase does
     require("error" not in grid, f"(i) the cells' runner failed: {grid.get('error')!r}")
     recs, wall = grid["recs"], grid["wall"]
-    if early is not None:  # MULTIPOD_EARLY, started with the script
+    for (arch, shape, pod), child in early:  # MULTIPOD_EARLY, started with the script
         t0 = time.perf_counter()
-        _, err = early.communicate(timeout=900)
-        arch, shape, pod = MULTIPOD_EARLY
+        _, err = child.communicate(timeout=900)
         path = MULTIPOD_DIR / f"{arch}__{shape}__{'2x16x16' if pod else '16x16'}.json"
-        require(early.returncode in (0, 1) and path.exists(),
-                f"(i) {arch} {shape}: the cell's process exited {early.returncode}: {err[-1500:]}")
+        require(child.returncode in (0, 1) and path.exists(),
+                f"(i) {arch} {shape}: the cell's process exited {child.returncode}: {err[-1500:]}")
         recs.append(json.loads(path.read_text()))
         log(f"  [multipod] (i) {arch} {shape} started with the script (nice 19); waited "
             f"{time.perf_counter() - t0:.1f}s for it here")
@@ -3270,7 +3467,7 @@ def main() -> int:
     tensor_core_sass(_build)
     pointwise_sass(_build)
 
-    early = start_early_cell("cuda")
+    early = start_early_cells("cuda")
     gen = torch.Generator().manual_seed(SEED)
     phase("[kernels] the plain path's integer product against the CPU's int32 product")
     dev = torch.device("cuda")
@@ -3332,7 +3529,7 @@ def main() -> int:
         launches[name] += n
     phase("[distributed] the distributed runtime: OLMo-1B's full train step through "
           "shard_train_fn on a 1x1 NCCL mesh vs the unsharded step, compressed_psum on the "
-          "card, and 4 gloo ranks sharing the card")
+          "card, a supervised restart of the sharded step, and 4 gloo ranks sharing the card")
     for name, n in distributed_phase(torch, card, dev).items():
         launches[name] += n
     phase("[multipod] the multi-pod dry run: cells of the reference's grid in fake 256 / "

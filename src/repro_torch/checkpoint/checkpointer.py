@@ -20,11 +20,28 @@ Fault-tolerance contract:
  * a crash mid-save never corrupts the previous checkpoint (staging dir +
    atomic rename + LATEST pointer written last);
  * restore() places each leaf on the device of the matching leaf of the
-   tree it is given;
+   tree it is given, or, given ``shardings``, on their meshes
+   (``runtime.sharding.device_put``: every rank of the meshes calls it),
+   so a state saved on one mesh restores onto a re-meshed one
+   (``runtime.elastic.remesh``);
  * save_async() copies every leaf to host memory before it returns (the
    training step updates params in place, so the copy cannot wait), and
    writes the files in a background thread (``wait()`` joins it before
    the next save).
+
+Sharded state: with a process group up, every rank of the default group
+calls ``save`` / ``save_async``.  The DTensor leaves are gathered whole
+one at a time (collective, before the call returns): the writer copies
+each to the host at once, and every rank frees it before the next, so a
+rank holds at most one whole leaf on its device beside its shards.  One
+rank a host writes the files: its local rank 0 (the host
+``data.pipeline.process_index`` counts), so they are the bytes a single
+process writes from the gathered tree.  No rank reads ``LATEST`` or
+``step_<N>`` before the writer has committed them: ``save`` ends with a
+barrier of the default group, and after ``save_async`` so does
+``wait()``, once it has joined the writer.  Without ``shardings``, a
+DTensor leaf of the tree given to ``restore`` is matched by its global
+shape and its value comes back as a plain tensor on its device.
 """
 
 from __future__ import annotations
@@ -36,9 +53,11 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.convert import is_layer_list, to_jax_layout
-from repro_torch.data.pipeline import process_index
+from repro_torch.data.pipeline import _ranks_per_host, process_index
+from repro_torch.runtime.sharding import device_put
 
 _SEP = "//"
 _BF16 = "bfloat16"
@@ -98,15 +117,31 @@ def _host(leaf) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def _host_flat(tree) -> tuple[dict, dict]:
+def _whole(leaf):
+    """``leaf`` whole: a DTensor's all-gather (collective), else ``leaf``."""
+    from torch.distributed.tensor import DTensor
+
+    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+
+
+def _host_flat(tree, write: bool = True) -> tuple[dict, dict] | None:
+    """Host arrays and manifest dtypes of ``tree``, taken now, each DTensor
+    leaf gathered and dropped before the next (collective: every rank
+    gathers every leaf in the same order); None on a rank that does not
+    ``write``."""
     arrays, dtypes = {}, {}
     for key, leaf in _flatten(tree).items():
-        if isinstance(leaf, _Layers):
-            parts = [_host(t) for t in leaf]
-            arrays[key], dtypes[key] = np.stack([a for a, _ in parts]), parts[0][1]
-        else:
-            arrays[key], dtypes[key] = _host(leaf)
-    return arrays, dtypes
+        parts = []
+        for t in leaf if isinstance(leaf, _Layers) else (leaf,):
+            whole = _whole(t)
+            if write:
+                parts.append(_host(whole))
+            del whole
+        if write:
+            arrays[key] = np.stack([a for a, _ in parts]) if isinstance(leaf, _Layers) \
+                else parts[0][0]
+            dtypes[key] = parts[0][1]
+    return (arrays, dtypes) if write else None
 
 
 def _tensor(arr: np.ndarray, dtype: str, like) -> torch.Tensor:
@@ -118,31 +153,53 @@ def _tensor(arr: np.ndarray, dtype: str, like) -> torch.Tensor:
     return t.to(like.device) if isinstance(like, torch.Tensor) else t
 
 
+def _group_up() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
 class Checkpointer:
     def __init__(self, directory: str):
         self.dir = directory
         os.makedirs(directory, exist_ok=True)
         self._thread: threading.Thread | None = None
+        self._in_group = False  # the last save ran with a group up
 
     # -- save -----------------------------------------------------------
 
+    def _snapshot(self, tree) -> tuple[dict, dict] | None:
+        """Host arrays and manifest dtypes of ``tree``, taken now; None on a
+        rank that does not write.  Collective when a group is up."""
+        self._in_group = _group_up()
+        return _host_flat(tree, not self._in_group
+                          or dist.get_rank() % _ranks_per_host() == 0)
+
     def save(self, step: int, tree) -> str:
+        """Write ``step`` and return its committed directory (on every rank
+        of the default group, when one is up)."""
         self.wait()
-        return self._write(step, *_host_flat(tree))
+        snap = self._snapshot(tree)
+        final = self._write(step, *snap) if snap is not None \
+            else os.path.join(self.dir, f"step_{step}")
+        self.wait()  # the group's barrier: the writer has committed
+        return final
 
     def save_async(self, step: int, tree) -> None:
         """Snapshot to host memory now; write in the background."""
         self.wait()
-        host_flat, dtypes = _host_flat(tree)  # D2H copy now, synchronous
-        self._thread = threading.Thread(
-            target=self._write, args=(step, host_flat, dtypes), daemon=True
-        )
-        self._thread.start()
+        snap = self._snapshot(tree)  # D2H copy now, synchronous
+        if snap is not None:
+            self._thread = threading.Thread(target=self._write, args=(step, *snap), daemon=True)
+            self._thread.start()
 
     def wait(self) -> None:
+        """Join the writer; after a save made with a group up, a barrier of
+        the default group (every rank calls ``wait``)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._in_group:
+            self._in_group = False
+            dist.barrier()
 
     def _write(self, step: int, host_flat: dict, dtypes: dict) -> str:
         final = os.path.join(self.dir, f"step_{step}")
@@ -178,9 +235,12 @@ class Checkpointer:
             return None
         return step
 
-    def restore(self, step: int, like_tree):
-        """Load ``step`` shaped like ``like_tree`` (the port's layout), each
-        leaf on the device of ``like_tree``'s leaf, in the manifest's dtype."""
+    def restore(self, step: int, like_tree, shardings=None):
+        """Load ``step`` shaped like ``like_tree`` (the port's layout), in the
+        manifest's dtype, each leaf on the device of ``like_tree``'s leaf;
+        with ``shardings`` (a ``NamedSharding`` tree, as
+        ``param_shardings`` / ``opt_state_shardings`` give), placed on
+        their meshes by ``device_put`` (collective)."""
         path = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
@@ -201,10 +261,11 @@ class Checkpointer:
                         raise ValueError(
                             f"shape mismatch for {key}: {arr.shape} vs {np.shape(like)}")
                     out[key] = _tensor(arr, dtype, like)
-        return _rebuild(like_tree, out)
+        tree = _rebuild(like_tree, out)
+        return tree if shardings is None else device_put(tree, shardings)
 
-    def restore_latest(self, like_tree):
+    def restore_latest(self, like_tree, shardings=None):
         step = self.latest_step()
         if step is None:
             return None, None
-        return step, self.restore(step, like_tree)
+        return step, self.restore(step, like_tree, shardings)

@@ -113,6 +113,9 @@ class DispatchTable:
             self.table.setdefault(kind, {})
             self.overrides[(kind, engine, backend)] = fn
 
+    def kinds(self) -> set[str]:
+        return set(self.table)
+
     def _lookup(self, kind: str, engine: Engine, backend: Backend) -> Callable:
         fn = self.overrides.get((kind, engine, backend))
         if fn is None:

@@ -164,10 +164,16 @@ def flash_block_update(
     logits_block: torch.Tensor,  # int8/int32 [..., bk]
     v_block: torch.Tensor,  # int8 [..., bk, out_dim] (or [bk, out_dim])
     mask_block: torch.Tensor | None = None,
+    luts: tuple | None = None,
 ) -> FlashItamaxState:
-    """One denominator-accumulation step fused with ``A @ V`` over a KV block."""
+    """One denominator-accumulation step fused with ``A @ V`` over a KV block.
+    ``luts`` = ``(exp_lut7, renorm_lut)`` as given (int32 on the block's
+    device, as built here when None)."""
     device = logits_block.device
-    lut7, rlut = exp_lut7(device), renorm_lut(device)
+    if luts is None:
+        lut7, rlut = exp_lut7(device), renorm_lut(device)
+    else:
+        lut7, rlut = (torch.as_tensor(t, dtype=torch.int32, device=device) for t in luts)
     if mask_block is not None and logits_block.dtype == torch.int8:
         # masked positions become -128: a real logit is >= -128, so the
         # row max cannot rise, and their exponentials are zeroed below

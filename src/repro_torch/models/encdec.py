@@ -13,6 +13,7 @@ per-layer dicts.  A cache is ``{"k", "v": [L, B, Hkv, max_len, D], "ck",
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.attention import (
@@ -97,25 +98,35 @@ def _attn_f32(cfg: ArchConfig, ap: dict, x: torch.Tensor, kv_src: torch.Tensor,
     return L.linear(ap["wo"], _merge_heads(out))
 
 
-def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor, **_) -> torch.Tensor:
+def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor, *, remat: bool = False,
+           **_) -> torch.Tensor:
+    """The encoder stack.  ``remat`` recomputes each layer's activations in
+    the backward pass."""
     x = frames + params["enc_pos"][: frames.shape[1]].to(frames.dtype)
-    for lp in params["enc_layers"]:
+
+    def body(x, lp):
         x = constrain(x, "residual")
         h = constrain(L.norm_apply(cfg.norm, lp["norm1"], x), "gathered")
         x = x + constrain(_attn_f32(cfg, lp["attn"], h, h, causal=False), "residual")
         h = constrain(L.norm_apply(cfg.norm, lp["norm2"], x), "gathered")
         x = x + constrain(L.mlp_forward(lp["mlp"], h, cfg.mlp), "residual")
-        x = constrain(x, "residual")
+        return constrain(x, "residual")
+
+    for lp in params["enc_layers"]:
+        x = checkpoint(body, x, lp, use_reentrant=False) if remat else body(x, lp)
     return constrain(L.norm_apply(cfg.norm, params["enc_final"], x), "gathered")
 
 
-def forward(cfg: ArchConfig, params: dict, batch: dict, **_) -> torch.Tensor:
-    """batch: frames [B, T, D], tokens [B, S].  Returns the decoder's logits."""
-    memory = encode(cfg, params, batch["frames"])
+def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False,
+            **_) -> torch.Tensor:
+    """batch: frames [B, T, D], tokens [B, S].  Returns the decoder's logits.
+    ``remat`` recomputes each layer of both stacks in the backward pass."""
+    memory = encode(cfg, params, batch["frames"], remat=remat)
     tokens = batch["tokens"].long()
     x = L.embed_lookup(params["dec_embed"]["table"], tokens) + \
         params["dec_pos"][: tokens.shape[1]].to(memory.dtype)
-    for lp in params["dec_layers"]:
+
+    def body(x, lp, memory):
         x = constrain(x, "residual")
         h = constrain(L.norm_apply(cfg.norm, lp["norm1"], x), "gathered")
         x = x + constrain(_attn_f32(cfg, lp["self_attn"], h, h, causal=True), "residual")
@@ -124,13 +135,18 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, **_) -> torch.Tensor:
                           "residual")
         h = constrain(L.norm_apply(cfg.norm, lp["norm2"], x), "gathered")
         x = x + constrain(L.mlp_forward(lp["mlp"], h, cfg.mlp), "residual")
-        x = constrain(x, "residual")
+        return constrain(x, "residual")
+
+    for lp in params["dec_layers"]:
+        x = checkpoint(body, x, lp, memory, use_reentrant=False) if remat \
+            else body(x, lp, memory)
     x = constrain(L.norm_apply(cfg.norm, params["dec_final"], x), "gathered")
     return L.matmul(x, params["lm_head"]["w"])
 
 
-def loss_fn(cfg: ArchConfig, params: dict, batch: dict, **_) -> torch.Tensor:
-    return L.token_nll(forward(cfg, params, batch), batch["labels"], cfg.vocab)
+def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False,
+            **_) -> torch.Tensor:
+    return L.token_nll(forward(cfg, params, batch, remat=remat), batch["labels"], cfg.vocab)
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -227,17 +228,25 @@ def _head(params: dict, x: torch.Tensor) -> torch.Tensor:
     return L.matmul(x, params["lm_head"]["w"])
 
 
-def forward(cfg: ArchConfig, params: dict, batch: dict, **_) -> torch.Tensor:
+def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False,
+            **_) -> torch.Tensor:
+    """Float forward: logits.  ``remat`` recomputes each block's
+    activations in the backward pass."""
     x = L.embed_lookup(params["embed"]["table"], batch["tokens"])
-    for bp in params["layers"]:
+
+    def body(x, bp):
         x = constrain(x, "residual")
         x, _, _ = block_forward(cfg, bp, x)
-        x = constrain(x, "residual")
+        return constrain(x, "residual")
+
+    for bp in params["layers"]:
+        x = checkpoint(body, x, bp, use_reentrant=False) if remat else body(x, bp)
     return _head(params, x)
 
 
-def loss_fn(cfg: ArchConfig, params: dict, batch: dict, **_) -> torch.Tensor:
-    return L.token_nll(forward(cfg, params, batch), batch["labels"], cfg.vocab)
+def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False,
+            **_) -> torch.Tensor:
+    return L.token_nll(forward(cfg, params, batch, remat=remat), batch["labels"], cfg.vocab)
 
 
 def init_cache(cfg: ArchConfig, batch: int, dtype=torch.float32, device=None) -> dict:

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.attention import (
@@ -129,21 +130,30 @@ def _head(params: dict, x: torch.Tensor) -> torch.Tensor:
     return L.matmul(x, params["lm_head"]["w"])
 
 
-def forward(cfg: ArchConfig, params: dict, batch: dict, **_) -> torch.Tensor:
-    """Float forward (the training path)."""
+def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False,
+            **_) -> torch.Tensor:
+    """Float forward (the training path).  ``remat`` recomputes each trunk
+    layer's activations, with its shared-attention site's, in the
+    backward pass."""
     x = L.embed_lookup(params["embed"]["table"], batch["tokens"])
     positions = torch.arange(x.shape[1], device=x.device)
-    for i, bp in enumerate(params["layers"]):
+
+    def body(x, bp, shared, site):
         x = constrain(x, "residual")
         x, _, _ = MB.block_forward(cfg, bp, x)
-        if (i + 1) % cfg.attn_every == 0:
-            x = _shared_attn_f32(cfg, params["shared"], x, positions)
-        x = constrain(x, "residual")
+        if site:
+            x = _shared_attn_f32(cfg, shared, x, positions)
+        return constrain(x, "residual")
+
+    for i, bp in enumerate(params["layers"]):
+        args = (x, bp, params["shared"], (i + 1) % cfg.attn_every == 0)
+        x = checkpoint(body, *args, use_reentrant=False) if remat else body(*args)
     return _head(params, x)
 
 
-def loss_fn(cfg: ArchConfig, params: dict, batch: dict, **_) -> torch.Tensor:
-    return L.token_nll(forward(cfg, params, batch), batch["labels"], cfg.vocab)
+def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False,
+            **_) -> torch.Tensor:
+    return L.token_nll(forward(cfg, params, batch, remat=remat), batch["labels"], cfg.vocab)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.float32,

@@ -13,6 +13,7 @@ asserted here as recorded).
 
 import json
 import os
+import zipfile
 
 import jax
 import jax.numpy as jnp
@@ -101,6 +102,43 @@ def test_async_snapshot_is_taken_before_return(tmp_path):
     tree["a"].add_(1.0)  # the next step, in place
     ck.wait()
     assert _same(ck.restore(1, tree)["a"], want)
+
+
+def _members(path) -> dict:
+    """{name: bytes} of an npz's members (the zip's own timestamps left out)."""
+    with zipfile.ZipFile(path) as z:
+        return {n: z.read(n) for n in z.namelist()}
+
+
+def test_without_a_process_group_the_files_are_a_single_process_save(tmp_path):
+    """No process group: the port writes from its own process, the files
+    the reference writes for the same tree, byte for byte (manifest,
+    ``LATEST``, every array of the npz), mixed leaves included; but for
+    the bfloat16 leaf's header, which names its 2-byte void ``|V2`` where
+    the reference's names it ``<V2`` (the same dtype to ``np.load``)."""
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+    g = torch.Generator().manual_seed(5)
+    layers = [torch.randn((3, 4), generator=g) for _ in range(2)]
+    b16 = torch.randn((2, 6), generator=g).to(torch.bfloat16)
+    port = {"layers": [{"w": w} for w in layers], "b16": b16,
+            "i": torch.arange(7, dtype=torch.int32), "n": np.linspace(0, 1, 5), "s": 3}
+    ref = {"layers": {"w": jnp.asarray(torch.stack(layers).numpy())},
+           "b16": jnp.asarray(b16.float().numpy()).astype(jnp.bfloat16),
+           "i": jnp.arange(7, dtype=jnp.int32), "n": np.linspace(0, 1, 5), "s": 3}
+    Checkpointer(str(tmp_path / "port")).save(5, port)
+    JCheckpointer(str(tmp_path / "jax")).save(5, ref)
+    for d in ("port", "jax"):
+        assert sorted(os.listdir(tmp_path / d)) == ["LATEST", "step_5"]
+        assert sorted(os.listdir(tmp_path / d / "step_5")) == ["host0.npz", "manifest.json"]
+    for name in ("LATEST", "step_5/manifest.json"):
+        assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes()
+    got, want = (_members(tmp_path / d / "step_5" / "host0.npz") for d in ("port", "jax"))
+    assert sorted(got) == sorted(want) == ["b16.npy", "i.npy", "layers//w.npy", "n.npy", "s.npy"]
+    b16_got, b16_want = got.pop("b16.npy"), want.pop("b16.npy")
+    assert got == want
+    assert b16_got == b16_want.replace(b"'<V2'", b"'|V2'", 1)
 
 
 def test_bfloat16_roundtrip_in_the_port(tmp_path):

@@ -11,6 +11,10 @@
 * every public name of a JAX package module (a function or class of the
   package, or a constant) is also a name of the port's twin module,
   except the deliberate list below;
+* every keyword of such a function, of such a class (its constructor) and
+  of each public method of it is also a keyword of the port's twin, by
+  name (a ``**kwargs`` that swallows it does not count), except the
+  deliberate keywords below;
 * ``dryrun`` without ``--via-plan`` (the multi-pod grid) parses the JAX
   package's defaults.  The port's own additions (the
   device, the exact integer products, the kernels' launch geometry) are
@@ -18,6 +22,7 @@
 """
 
 import importlib
+import inspect
 import pathlib
 
 import pytest
@@ -41,6 +46,31 @@ DELIBERATE = {
     "repro.kernels.itamax.ops": {"itamax_pallas"},
 }
 _SIMPLE = (int, float, str, bool, tuple, frozenset, set, dict, bytes)
+
+#: keywords of the JAX package that the port does not take, on purpose:
+#: ``key`` anywhere (the port draws torch bits from seeds and generators);
+#: of the kernel wrappers (by the reference function's module and name),
+#: ``interpret`` and the Pallas tile sizes (the port's wrappers choose
+#: their launch shape per call: ``gemm_grid``, ``attn_grid``,
+#: ``itamax_grid``, ``igelu_grid``; ``ita_attention``'s ``block_k``
+#: changes the numbers and stays compared); ``devices`` of
+#: ``elastic.remesh`` (the port's mesh is laid over ranks); and the HLO
+#: text or compiled object of the dry run's analysis (the port reads an
+#: op stream)
+DELIBERATE_KWARGS = {
+    "*": {"key"},
+    "repro.kernels.int8_gemm.ops.int8_gemm": {"interpret", "block_m", "block_n", "block_k"},
+    "repro.kernels.igelu.ops.igelu": {"interpret", "block_m", "block_n"},
+    "repro.kernels.ita_attention.ops.ita_attention": {"interpret", "block_q"},
+    "repro.kernels.ita_attention.ops.ita_decode": {"interpret"},
+    "repro.kernels.itamax.ops.itamax": {"interpret", "block_rows"},
+    "repro.runtime.elastic.remesh": {"devices"},
+    "repro.deploy.hlo_analysis.analyze_hlo": {"text"},
+    "repro.deploy.hlo_analysis.analyze_compiled": {"compiled"},
+    "repro.deploy.hlo_analysis.top_dots": {"text"},
+    "repro.deploy.hlo_analysis.top_collectives": {"text"},
+    "repro.launch.dryrun.analyze_hlo": {"text"},
+}
 
 
 def _module_pairs() -> list[str]:
@@ -80,6 +110,74 @@ def test_deliberate_names_are_still_the_references():
     """Each deliberate omission names something the reference has."""
     for name, names in DELIBERATE.items():
         assert names <= _public(importlib.import_module(name), "repro"), name
+
+
+def _keywords(fn) -> set[str]:
+    """The names ``fn`` takes as keywords (``self`` and ``*args`` /
+    ``**kwargs`` left out)."""
+    params = inspect.signature(fn).parameters.values()
+    return {p.name for p in params if p.name not in ("self", "cls")
+            and p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY)}
+
+
+def _callables(mod, pkg: str) -> dict:
+    """{qualified name: callable} of the module's public functions and
+    classes, and of each public method of those classes."""
+    out = {}
+    for name in _public(mod, pkg):
+        value = getattr(mod, name)
+        if not callable(value):
+            continue
+        out[name] = value
+        if inspect.isclass(value):
+            for attr, f in vars(value).items():
+                f = getattr(f, "__func__", f)  # staticmethod / classmethod
+                if not attr.startswith("_") and inspect.isfunction(f):
+                    out[f"{name}.{attr}"] = f
+    return out
+
+
+def _deliberate_kwargs(fn) -> set[str]:
+    where = f"{getattr(fn, '__module__', '')}.{getattr(fn, '__qualname__', '')}"
+    return DELIBERATE_KWARGS["*"] | DELIBERATE_KWARGS.get(where, set())
+
+
+@pytest.mark.parametrize("name", _module_pairs())
+def test_keywords_of_the_reference_exist_in_the_port(name):
+    ref = importlib.import_module(name)
+    port = importlib.import_module("repro_torch" + name[len("repro"):])
+    missing = []
+    for qual, fn in _callables(ref, "repro").items():
+        twin = port
+        for part in qual.split("."):
+            twin = getattr(twin, part, None)
+        if twin is None:
+            assert qual in DELIBERATE.get(name, set()), f"{name}: {qual} is missing"
+            continue
+        gone = _keywords(fn) - _keywords(twin) - _deliberate_kwargs(fn)
+        missing += [f"{qual}({k}=)" for k in sorted(gone)]
+    assert not missing, f"{name}: {missing}"
+
+
+def test_deliberate_kwargs_are_still_the_references():
+    """Each deliberate keyword is one the reference takes."""
+    for where, kws in DELIBERATE_KWARGS.items():
+        if where == "*":
+            continue
+        mod, fn = where.rsplit(".", 1)
+        assert kws <= _keywords(getattr(importlib.import_module(mod), fn)), where
+    takes_key = [q for name in _module_pairs()
+                 for q, fn in _callables(importlib.import_module(name), "repro").items()
+                 if "key" in _keywords(fn)]
+    assert len(takes_key) >= 10, takes_key
+
+
+def test_dispatch_table_kinds_is_a_checked_method():
+    from repro.core.heterogeneous import DispatchTable
+
+    assert "DispatchTable.kinds" in _callables(
+        importlib.import_module("repro.core.heterogeneous"), "repro")
+    assert _keywords(DispatchTable.kinds) == set()
 
 
 def test_kernel_reexports_are_the_wrappers():

@@ -7,7 +7,15 @@ elastic 8 -> 4 re-mesh and the mesh builders on all 8; then, on groups of
 ``pipelined_apply`` at 4 stages, the FSDP placement of a layer leaf on
 2x2, ``constrain``'s placements for every kind, reduced OLMo-1B's
 ``shard_train_fn`` steps on 2x2 and 4x1, one sharded step of every other
-arch, and the refusal of an op DTensor cannot shard.  The reference runs
+arch, and the refusal of an op DTensor cannot shard.  Sharded
+checkpoints: a ``Supervisor`` restart around the 2x2 step, run by both
+halves at once as replicas of one job (rank 0 writes, half B restores
+half A's files), equals the uninterrupted sharded run bit for bit in
+each half, and writes one set of files, equal key by key to a single
+process's save of the gathered state and loadable by the JAX package's
+``Checkpointer``; a state saved from a (4, 2) mesh of all 8 ranks
+restores onto the (2, 2) re-mesh of ranks 0-3 by the rules, and the next
+step there agrees with the unsharded step.  The reference runs
 in a subprocess with 4 forced host devices (``jax.set_mesh`` before its
 ``shard_map``: without it JAX 0.9 refuses the reference's own
 ``compressed_psum`` test), at the same time as the ranks.
@@ -35,13 +43,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro.checkpoint import Checkpointer as JCheckpointer
 from repro.configs import ShapeCell, get_config, list_archs, reduced
 from repro.data import DataConfig
 from repro.data import make_batch as j_make_batch
 from repro.models import build as j_build
+from repro.optim import adamw as JA
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs import reduced as t_reduced
-from repro_torch.convert import from_jax_params, to_jax_layout
+from repro_torch.convert import from_jax_params, to_jax_layout, tree_map
 from repro_torch.launch.mesh import spawn
 from repro_torch.launch.train import make_train_step
 from repro_torch.models import build as t_build
@@ -165,6 +176,12 @@ def runs(tmp_path_factory):
             "tokens": torch.from_numpy(np.random.default_rng(0).integers(
                 0, cfg.vocab, (4, 16), dtype=np.int32)),
         }
+        # (params, AdamW state) after the unsharded first step, and the second
+        # batch: what the 8 ranks save, restore on 4 and step from
+        api = t_build(t_reduced(t_get_config("olmo-1b")))
+        p1 = tree_map(torch.clone, inputs["olmo"])
+        p1, o1, _ = make_train_step(api, remat=True)(p1, TA.init(p1), inputs["batches"][0])
+        inputs["ckpt_state"] = (p1, o1, inputs["batches"][1])
         torch.save(inputs, out / "inputs.pt")
         archs = [a for a in list_archs() if a != "olmo-1b"]
         spawn(R.world8, 8, str(out), archs, timeout=SPAWN_TIMEOUT, workdir=out)
@@ -176,7 +193,8 @@ def runs(tmp_path_factory):
     assert "REFERENCE_OK" in stdout, stderr[-3000:]
     a, b = (torch.load(out / f"rank{r}.pt", weights_only=False) for r in (0, 4))
     both = {**b, **a, "archs": {**a["archs"], **b["archs"]}}
-    return {"ref": dict(np.load(out / "ref.npz")), "w4": both, "inputs": inputs, "w8": [a, b]}
+    return {"ref": dict(np.load(out / "ref.npz")), "w4": both, "inputs": inputs, "w8": [a, b],
+            "out": out}
 
 
 def test_one_host_of_eight_ranks_sees_the_global_batch(runs):
@@ -231,8 +249,6 @@ def test_constrain_placements_equal_reference(runs):
 
 
 def _unsharded_olmo(inputs, microbatches):
-    from repro_torch.convert import tree_map
-
     api = t_build(t_reduced(t_get_config("olmo-1b")))
     p = tree_map(torch.clone, inputs["olmo"])
     o = TA.init(p)
@@ -373,3 +389,104 @@ def test_a_failing_rank_fails_the_spawn_and_no_process_is_left(tmp_path):
     with pytest.raises(ProcessRaisedException, match="fails on purpose|gloo"):
         spawn(R.fail_on, 2, 1, workdir=tmp_path, timeout=60)
     assert multiprocessing.active_children() == []
+
+
+# ---------------------------------------------------------------------------
+# sharded checkpoints
+# ---------------------------------------------------------------------------
+
+
+def _checked(res: dict) -> dict:
+    assert "error" not in res, res["error"]
+    return res
+
+
+def _state_leaves(state):
+    """The leaves of a (params, AdamWState) in the reference's layout, as numpy."""
+    params, opt = state
+    return [np.asarray(x) for x in jax.tree.leaves(
+        (to_jax_layout(params), int(opt.step), to_jax_layout(opt.mu), to_jax_layout(opt.nu)))]
+
+
+def _equal_states(a, b) -> bool:
+    return all(x.dtype == y.dtype and np.array_equal(x, y)
+               for x, y in zip(_state_leaves(a), _state_leaves(b), strict=True))
+
+
+@pytest.mark.parametrize("half", [0, 1], ids=["A", "B"])
+def test_supervised_sharded_restart_equals_the_uninterrupted_run(runs, half):
+    got = _checked(runs["w8"][half]["restart"])
+    assert got["failed"] == [R.RESTART["fail_at"]]
+    # steps 0-2, the failure at 3, the replay from the save at step 2
+    assert [h[0] for h in got["history"]] == [0, 1, 2, 2, 3]
+    for s, loss, gnorm in got["history"]:
+        assert (loss, gnorm) == got["plain"][s], s  # bit for bit
+    assert got["latest"] == R.RESTART["steps"]
+    assert int(got["state"][1].step) == R.RESTART["steps"]
+    assert _equal_states(got["state"], got["plain_state"])
+
+
+def test_sharded_save_writes_the_files_of_a_single_process(runs, tmp_path):
+    got = _checked(runs["w4"]["restart"])
+    root = runs["out"] / "restart"
+    step = R.RESTART["steps"]
+    assert sorted(os.listdir(root)) == ["LATEST", "step_2", f"step_{step}"]
+    assert sorted(os.listdir(root / f"step_{step}")) == ["host0.npz", "manifest.json"]
+    Checkpointer(str(tmp_path)).save(step, got["state"])  # no process group here
+    want = tmp_path / f"step_{step}"
+    assert (root / f"step_{step}" / "manifest.json").read_text() == \
+        (want / "manifest.json").read_text()
+    with np.load(root / f"step_{step}" / "host0.npz") as a, np.load(want / "host0.npz") as b:
+        assert a.files == b.files and len(a.files) > 10
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
+
+
+def test_reference_checkpointer_loads_the_sharded_save(runs):
+    got = _checked(runs["w4"]["restart"])
+    params, opt = got["state"]
+    numpy = lambda t: jax.tree.map(lambda x: x.numpy(), to_jax_layout(t))  # noqa: E731
+    like = (numpy(params), JA.AdamWState(np.asarray(opt.step), numpy(opt.mu), numpy(opt.nu)))
+    step, back = JCheckpointer(str(runs["out"] / "restart")).restore_latest(like)
+    assert step == R.RESTART["steps"]
+    want = jax.tree.leaves(like)
+    assert len(jax.tree.leaves(back)) == len(want)
+    for a, b in zip(jax.tree.leaves(back), want):
+        assert np.asarray(a).dtype == b.dtype and np.array_equal(np.asarray(a), b)
+
+
+def test_restore_on_fewer_ranks_places_the_saved_values_by_the_rules(runs):
+    rank0, rank4 = (_checked(r["restore8to4"]) for r in runs["w8"])
+    p1, o1, _ = runs["inputs"]["ckpt_state"]
+    assert rank0["step"] == rank4["step"] == 1
+    assert rank0["misplaced"] == rank4["misplaced"] == []
+    assert rank0["placements"] == ["Replicate()", "Shard(dim=0)"]  # embed over "model"
+    assert _equal_states(rank0["values"], (p1, o1))
+    assert "values" not in rank4  # rank 4 left the mesh
+    assert sorted(os.listdir(runs["out"] / "ckpt8" / "step_1")) == ["host0.npz",
+                                                                    "manifest.json"]
+
+
+def test_sharded_save_is_committed_when_it_returns(runs):
+    """Rank 0 writes; rank 4, which does not, sees ``LATEST`` and the step's
+    directory as soon as its ``save`` returns, with no ``wait()``."""
+    for r in runs["w8"]:
+        assert _checked(r["restore8to4"])["committed"] == {"latest": 1, "path": True}
+
+
+@pytest.mark.parametrize("rank", [0, 4], ids=["writer", "not-writer"])
+def test_sharded_save_holds_one_whole_leaf_at_a_time(runs, rank):
+    """Each rank gathers every DTensor leaf whole, and frees it before the
+    next: the whole leaves alive at once are never more than the largest."""
+    got = _checked(runs["w8"][rank // 4]["restore8to4"])["whole_bytes"]
+    p1, o1, _ = runs["inputs"]["ckpt_state"]
+    assert got["total"] == sum(t.nbytes for t in jax.tree.leaves((p1, o1)))
+    assert 0 < got["peak"] == got["largest"] < got["total"]
+
+
+def test_next_step_after_restore_on_fewer_ranks_matches_unsharded(runs):
+    got = _checked(runs["w8"][0]["restore8to4"])
+    want_m, want_p = _unsharded_olmo(runs["inputs"], 1)  # its second step starts from p1, o1
+    leaves = lambda t: [x.numpy() for x in jax.tree.leaves(to_jax_layout(t))]  # noqa: E731
+    _hold([got["metrics"]], leaves(got["params"]), want_m[1:], leaves(want_p), GNORM_RTOL,
+          "2x2 after the 8 -> 4 restore")

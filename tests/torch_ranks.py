@@ -3,11 +3,13 @@
 ``launch.mesh.spawn`` starts 8 ranks (gloo, on the CPU) and imports this
 module by name in each of them, so it imports no JAX: the reference's
 side runs in its own process, and the results meet in the test.  All 8
-take part in the elastic 8 -> 4 re-mesh and build every mesh (a mesh's
-groups are made by every rank of the world); then ranks 0-3 ("A") and
-4-7 ("B") each run their half of the checks on meshes of their own four
-ranks, at the same time.  Ranks 0 and 4 write what their half saw to
-``<out>/rank<r>.pt``.
+take part in the elastic 8 -> 4 re-mesh, in a sharded checkpoint saved
+from a (4, 2) mesh and restored onto its (2, 2) re-mesh, and build every
+mesh (a mesh's groups are made by every rank of the world); then ranks
+0-3 ("A") and 4-7 ("B") each run their half of the checks on meshes of
+their own four ranks, at the same time, the first of them a supervised
+restart that both halves checkpoint together.  Ranks 0 and 4 write what their
+half saw to ``<out>/rank<r>.pt``; the checkpoints stay under ``<out>``.
 """
 
 from __future__ import annotations
@@ -48,6 +50,9 @@ HALF_B_ARCHS = ["qwen1.5-110b", "mistral-large-123b", "stablelm-1.6b", "zamba2-2
                 "mamba2-370m", "seamless-m4t-large-v2", "llava-next-34b"]
 OLMO_BATCH, OLMO_SEQ, OLMO_STEPS_N = 4, 32, 2
 ARCH_BATCH, ARCH_SEQ = 4, 16
+#: the supervised restart of reduced OLMo-1B's 2x2 step (half A): a save
+#: every 2 steps, one failure injected at step 3, 4 steps
+RESTART = dict(save_every=2, fail_at=3, steps=4)
 
 
 def _placed_as_rules(tree, shardings) -> list[str]:
@@ -59,6 +64,174 @@ def _placed_as_rules(tree, shardings) -> list[str]:
     flags = _map2(lambda t, s: tuple(t.placements) == s.placements, tree, shardings)
     _map_with_path(lambda p, ok: ok or bad.append("/".join(map(str, p))), flags)
     return bad
+
+
+def _cloned(tree):
+    from repro_torch.runtime.sharding import _map_with_path
+
+    return _map_with_path(lambda _, t: t.clone(), tree)
+
+
+def _error(fn, *args) -> dict:
+    """``fn(*args)``, or the error it raised (every rank raises alike, so
+    the ranks stay in step and the other checks still run)."""
+    import traceback
+
+    try:
+        return fn(*args)
+    except Exception:  # noqa: BLE001 - reported by the test that reads it
+        return {"error": traceback.format_exc()[-3000:]}
+
+
+class _LiveWholes:
+    """While entered, counts the bytes of the whole leaves that the
+    checkpointer's gathers (``checkpointer._whole``) have returned and
+    that are still alive, at each gather (weak references: a freed leaf
+    drops out): ``peak`` of them at once, ``largest`` of one, ``total``."""
+
+    def __enter__(self):
+        import weakref
+
+        from repro_torch.checkpoint import checkpointer
+
+        self._mod, self._orig = checkpointer, checkpointer._whole
+        self.refs, self.peak, self.largest, self.total = [], 0, 0, 0
+
+        def whole(leaf):
+            t = self._orig(leaf)
+            if t is not leaf:
+                self.refs = [r for r in self.refs if r() is not None] + [weakref.ref(t)]
+                live = [r() for r in self.refs]
+                self.peak = max(self.peak, sum(x.nbytes for x in live if x is not None))
+                self.largest = max(self.largest, t.nbytes)
+                self.total += t.nbytes
+            return t
+
+        checkpointer._whole = whole
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._whole = self._orig
+
+
+def _restore_on_fewer_ranks(rank: int, out: Path, state, mesh8, mesh4) -> dict:
+    """On all 8 ranks: ``state`` (reduced OLMo-1B's params and AdamW state)
+    placed by the rules on the (4, 2) mesh and saved by the default group
+    (the whole leaves each rank holds at once counted, and what each rank
+    sees when ``save`` returns), then restored onto the (2, 2) re-mesh of
+    ranks 0-3 by its rules; ranks 0-3 gather the restored values and take
+    the next step there."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.train import make_train_step, shard_train_fn
+    from repro_torch.models import build
+    from repro_torch.runtime.activations import activation_policy
+    from repro_torch.runtime.sharding import (
+        device_put, gather, opt_state_shardings, param_shardings)
+
+    params, opt, batch = state
+
+    def rules(mesh):
+        p_sh = param_shardings(mesh, params)
+        return p_sh, opt_state_shardings(mesh, opt, p_sh)
+
+    placed = device_put((params, opt), rules(mesh8))
+    ck = Checkpointer(str(out / "ckpt8"))
+    with _LiveWholes() as live:
+        path = ck.save(1, placed)
+    # no wait(): a synchronous save returns committed on every rank
+    committed = {"latest": ck.latest_step(), "path": Path(path).is_dir()}
+    step, (p4, o4) = ck.restore_latest(placed, shardings=rules(mesh4))
+    p_sh4, o_sh4 = rules(mesh4)
+    res = {"step": step, "misplaced": _placed_as_rules(p4, p_sh4) + _placed_as_rules(o4, o_sh4),
+           "placements": [repr(p) for p in p4["embed"]["table"].placements],
+           "committed": committed,
+           "whole_bytes": {"peak": live.peak, "largest": live.largest, "total": live.total}}
+    if rank < 4:
+        res["values"] = _cloned(gather((p4, o4)))
+        api = build(reduced(get_config("olmo-1b")))
+        sstep = shard_train_fn(make_train_step(api, remat=True), mesh4, p4, o4, batch)
+        with activation_policy(mesh4):
+            p5, _, m = sstep(p4, o4, batch)
+        res["metrics"] = (float(m["loss"]), float(m["grad_norm"]))
+        res["params"] = gather(p5)
+    return res
+
+
+def _supervised_restart(mesh, out: Path, params) -> dict:
+    """Reduced OLMo-1B's sharded step (2x2, fsdp, under the policy) run
+    uninterrupted, and under ``Supervisor`` (``RESTART``): the metrics of
+    every step and the final states, gathered.  Both halves run it at
+    once, each on its own 2x2 mesh, as two replicas of one job: every
+    rank calls the checkpointer, rank 0 writes the host's files, and half
+    B restores what half A's gather wrote.  Both run under ``torch.use_deterministic_algorithms``:
+    the CPU's threaded ``index_put_(accumulate=True)`` (the embedding
+    gather's backward) sums a repeated token's rows in a varying order,
+    so two runs of one step can differ in the last bit."""
+    from repro_torch.configs import ShapeCell, get_config, reduced
+    from repro_torch.convert import tree_map
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.launch.train import make_train_step, shard_train_fn
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.activations import activation_policy
+
+    cfg = reduced(get_config("olmo-1b"))
+    dcfg = DataConfig(vocab=cfg.vocab, global_batch=OLMO_BATCH, seq_len=OLMO_SEQ)
+    cell = ShapeCell("t", OLMO_SEQ, OLMO_BATCH, "train")
+    train_step = make_train_step(build(cfg), remat=True)
+
+    def batch_fn(s):
+        return {k: torch.from_numpy(v) for k, v in make_batch(cfg, cell, dcfg, s).items()}
+
+    def start():
+        p = tree_map(torch.clone, params)
+        o = adamw.init(p)
+        sstep = shard_train_fn(train_step, mesh, p, o, batch_fn(0), fsdp=True)
+
+        def step_fn(state, batch):
+            with activation_policy(mesh):
+                p, o, m = sstep(*state, batch)
+            return (p, o), m
+
+        return step_fn, (p, o)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        return _restart_runs(start, batch_fn, out)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _restart_runs(start, batch_fn, out: Path) -> dict:
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.runtime.fault import Supervisor
+    from repro_torch.runtime.sharding import gather
+
+    def metrics(m):
+        return float(m["loss"]), float(m["grad_norm"])
+
+    step_fn, state = start()
+    plain = []
+    for s in range(RESTART["steps"]):
+        state, m = step_fn(state, batch_fn(s))
+        plain.append(metrics(m))
+    res = {"plain": plain, "plain_state": gather(state)}
+
+    failed = []
+
+    def inject(s):
+        if s == RESTART["fail_at"] and not failed:
+            failed.append(s)
+            raise RuntimeError(f"failure injected at step {s}")
+
+    step_fn, state = start()
+    ck = Checkpointer(str(out / "restart"))
+    state, history = Supervisor(ck, save_every=RESTART["save_every"]).run(
+        step_fn, state, batch_fn, 0, RESTART["steps"], inject_failure=inject)
+    res.update(history=[(s, *metrics(m)) for s, m in history], failed=failed,
+               state=gather(state), latest=ck.latest_step())
+    return res
 
 
 def _olmo_steps(mesh, params, batches, fsdp, microbatches, policy):
@@ -303,6 +476,9 @@ def world8(rank: int, world: int, out: str, archs: list) -> None:
     res["placements"] = [repr(p) for p in w4.placements]
     if rank < 4:
         res["values"] = gather(p4)["layers"]["mlp"]["up"]["w"]
+    inputs = torch.load(out / "inputs.pt", weights_only=False)  # written by the test
+    res["restore8to4"] = _error(_restore_on_fewer_ranks, rank, out, inputs["ckpt_state"],
+                                mesh8, mesh4)
     res["host_mesh"] = [tuple(make_host_mesh(d, m, device="cpu").shape)
                         for d, m in ((16, 1), (2, 8), (2, 2), (1, 1))]
     try:
@@ -317,11 +493,11 @@ def world8(rank: int, world: int, out: str, archs: list) -> None:
               for half, lo in (("A", 0), ("B", 4)) for shape in ((2, 2), (4, 1), (1, 4))}
     pods = make_mesh((4,), ("pod",), device="cpu", ranks=range(4))
     half = "A" if rank < 4 else "B"
+    t0 = time.perf_counter()
+    res["restart"] = _error(_supervised_restart, meshes[(half, (2, 2))], out, inputs["olmo"])
+    res["restart"]["seconds"] = time.perf_counter() - t0
     if half == "A":
-        inputs = torch.load(out / "inputs.pt")
         res.update(_four_rank_checks(rank, inputs, pods, meshes[("A", (2, 2))]))
-    else:
-        inputs = torch.load(out / "inputs.pt")
     for case in OLMO_STEPS:
         if (case in HALF_B_STEPS) == (half == "B"):
             res[("olmo", *case)] = _olmo_steps(meshes[(half, case[0])], inputs["olmo"],
