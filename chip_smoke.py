@@ -3041,6 +3041,7 @@ def distributed_phase(torch, card: str, dev, reduced_cfg: bool = False) -> dict[
     compress -> decompress on the CPU, (d) checkpoint/restart around the
     sharded step on that mesh, (c) 4 spawned ranks on the card over
     gloo."""
+    import gc
     import shutil
     import tempfile
 
@@ -3086,7 +3087,10 @@ def distributed_phase(torch, card: str, dev, reduced_cfg: bool = False) -> dict[
                    for s in range(DIST["steps"])]
         step = make_train_step(api, remat=True)
         params = api.init_params(SEED, device=None if on_card else dev)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
         want, t_plain, p_plain, _ = _olmo_steps_on(torch, api, params, batches, step, sync)
+        peak_plain = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
         p_plain = tree_map(lambda t: t.cpu(), p_plain)
         del params
         if on_card:
@@ -3130,7 +3134,8 @@ def distributed_phase(torch, card: str, dev, reduced_cfg: bool = False) -> dict[
             f"(median {med_shard:.3f}); unsharded: first {t_plain[0]:.3f}, then "
             f"{', '.join(f'{t:.3f}' for t in t_plain[1:])} (median {med_plain:.3f}); DTensor "
             f"costs {med_shard - med_plain:.3f} ms a step ({med_shard / med_plain:.2f}x); "
-            f"peak {peak:.2f} GB allocated; on {card}")
+            f"torch.cuda.max_memory_allocated sharded {peak:.2f} GB, unsharded "
+            f"{peak_plain:.2f} GB; on {card}")
         del params, p_shard, o_shard, p_plain, sstep, batches
         _take(wrappers, launches, dev, {}, "(a) shard_train_fn")
 
@@ -3154,6 +3159,9 @@ def distributed_phase(torch, card: str, dev, reduced_cfg: bool = False) -> dict[
     finally:
         dist.destroy_process_group()
         if on_card:
+            # the sharded steps leave reference cycles that hold device
+            # tensors: collect them before (c)'s ranks take the card
+            gc.collect()
             torch.cuda.empty_cache()
 
     # (c) 4 ranks sharing the card over gloo
@@ -3248,8 +3256,12 @@ MULTIPOD_PEAK_RATIO = (0.95, 1.10)
 def _tie_step(torch, dev_type: str, fake: bool) -> dict:
     """[distributed] (a)'s step on a 1x1 mesh of the running world, its
     arguments placed first, one call recorded: the analysis, the argument
-    bytes and (for real) the device's peak allocation."""
+    bytes and (for real) the device's peak allocation.  Garbage is
+    collected before the allocation is read: reference cycles left by
+    earlier phases hold device tensors, and a collection inside the step
+    would free them and pull its reading below the step's own peak."""
     import contextlib
+    import gc
 
     from repro_torch.configs import ShapeCell, get_config
     from repro_torch.data import DataConfig, make_batch
@@ -3279,6 +3291,7 @@ def _tie_step(torch, dev_type: str, fake: bool) -> dict:
         step = shard_train_fn(make_train_step(api, remat=True), mesh, params, opt, batch)
         on_card = not fake and dev_type == "cuda"
         if on_card:
+            gc.collect()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             before = torch.cuda.memory_allocated()
@@ -3413,7 +3426,8 @@ def multipod_phase(torch, card: str, dev, early=()) -> dict[str, int]:
             f"rank, collective bytes {json.dumps(c['bytes_by_op'])} ({c['total_bytes']:.4e} "
             f"in {sum(c['op_counts'].values())} ops), arguments "
             f"{r['argument_size_in_bytes'] / 1e9:.3f} GB, temp "
-            f"{r['temp_size_in_bytes'] / 1e9:.3f} GB a rank; host s: build {r['lower_s']}, "
+            f"{r['temp_size_in_bytes'] / 1e9:.3f} GB a rank, largest storage "
+            f"{r['largest_bytes'] / 1e9:.3f} GB; host s: build {r['lower_s']}, "
             f"step {r['compile_s']}")
     log(f"  [multipod] (i) {len(recs)} cells ok; {len(MULTIPOD_CELLS)} in {wall:.1f}s "
         f"({MULTIPOD_JOBS} at a time); "

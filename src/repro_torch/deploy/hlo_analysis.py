@@ -36,6 +36,12 @@ The numbers follow the JAX package's conventions where they carry over:
    recording, on the recorder's device type, counting the storages that
    :meth:`OpRecorder.track` registered (the step's arguments) and every
    storage an op made, each until it is freed.
+ * **largest_bytes**: the bytes of the largest single storage of those
+   (the witness of one tensor too large for a rank, such as a product
+   held at its global shape).
+ * **live_at_peak** (``OpRecorder(at_peak=True)``, :func:`live_at_peak`):
+   the storages live at the peak, grouped by the source, shape and dtype
+   of the op that made them: what holds a rank's memory.
 
 ``analyze_hlo``, ``top_dots`` and ``top_collectives`` take a recorder
 where the JAX package takes HLO text; a source is the innermost frame of
@@ -113,12 +119,18 @@ class OpRecorder(TorchDispatchMode):
 
     ``device``: the device type whose storages count toward ``peak_bytes``
     (default: every device).  Aggregates as it goes, so a step of a
-    million ops costs a few counters, not a list.
+    million ops costs a few counters, not a list.  ``at_peak``: also keep
+    the source, shape and dtype of each live storage, and the live set at
+    the peak (:func:`live_at_peak`; a copy of it at every new peak).
     """
 
-    def __init__(self, device: str | None = None):
+    def __init__(self, device: str | None = None, *, at_peak: bool = False):
         super().__init__()
         self.device = device
+        self.at_peak = at_peak
+        self.peak_live: list = []  # (bytes, (source, shape, dtype)) at the peak (at_peak)
+        self._meta: dict = {}  # live storage -> (source, shape, dtype) (at_peak)
+        self._tracking = False
         self.flops = 0.0
         self.mem_bytes = 0.0
         self.n_computations = 0
@@ -130,6 +142,7 @@ class OpRecorder(TorchDispatchMode):
         self.colls: dict = defaultdict(lambda: [0, 0.0])  # (kind, op, source) -> [n, bytes]
         self.live_bytes = 0
         self.peak_bytes = 0
+        self.largest_bytes = 0
         self._live: dict = {}
         self._inferring = 0
         self._restore = None
@@ -146,11 +159,19 @@ class OpRecorder(TorchDispatchMode):
         n = st.nbytes()
         self._live[key] = n
         self.live_bytes += n
-        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        self.largest_bytes = max(self.largest_bytes, n)
+        if self.at_peak:
+            self._meta[key] = ("<argument>" if self._tracking else _source(),
+                               tuple(t.shape), str(t.dtype).replace("torch.", ""))
+        if self.live_bytes > self.peak_bytes:
+            self.peak_bytes = self.live_bytes
+            if self.at_peak:
+                self.peak_live = [(b, self._meta[k]) for k, b in self._live.items()]
         weakref.finalize(st, self._drop, key)
 
     def _drop(self, key) -> None:
         self.live_bytes -= self._live.pop(key, 0)
+        self._meta.pop(key, None)
 
     @staticmethod
     def _local(t):
@@ -160,9 +181,13 @@ class OpRecorder(TorchDispatchMode):
         """Registers the storages of every tensor of ``tree`` (a DTensor by
         its local shard) as live; returns their distinct bytes."""
         before = self.live_bytes
-        for t in tree_leaves(tree):
-            if isinstance(t, torch.Tensor):
-                self._hold(self._local(t))
+        self._tracking = True
+        try:
+            for t in tree_leaves(tree):
+                if isinstance(t, torch.Tensor):
+                    self._hold(self._local(t))
+        finally:
+            self._tracking = False
         return self.live_bytes - before
 
     @classmethod
@@ -251,7 +276,7 @@ class OpRecorder(TorchDispatchMode):
 def analyze_hlo(rec: OpRecorder) -> dict:
     """The roofline inputs of a recorded stream, under the JAX package's
     keys (plus the port's own: ``op_counts``, ``peak_bytes``,
-    ``other_collectives``)."""
+    ``largest_bytes``, ``other_collectives``)."""
     return {
         "flops": rec.flops,
         "mem_bytes": rec.mem_bytes,
@@ -261,6 +286,7 @@ def analyze_hlo(rec: OpRecorder) -> dict:
         "n_computations": rec.n_computations,
         "op_counts": dict(rec.op_counts),
         "peak_bytes": rec.peak_bytes,
+        "largest_bytes": rec.largest_bytes,
         "other_collectives": dict(rec.other_collectives),
     }
 
@@ -281,6 +307,22 @@ def top_dots(rec: OpRecorder, n: int = 12) -> list[dict]:
               "op": op, "shapes": shapes}
              for (src, op, shapes), (k, f) in rec.dots.items()]
     found.sort(key=lambda r: -r["flops_total"])
+    return found[:n]
+
+
+def live_at_peak(rec: OpRecorder, n: int = 12) -> list[dict]:
+    """The n largest groups of the storages live at the recording's peak
+    (a recorder made with ``at_peak=True``), by total bytes: storages made
+    at one source with one shape and dtype form a group (``<argument>``:
+    the tracked arguments)."""
+    groups: dict = defaultdict(lambda: [0, 0])
+    for nbytes, meta in rec.peak_live:
+        g = groups[meta]
+        g[0] += 1
+        g[1] += nbytes
+    found = [{"bytes_total": b, "count": k, "source": src, "shape": list(shape), "dtype": dt}
+             for (src, shape, dt), (k, b) in groups.items()]
+    found.sort(key=lambda r: -r["bytes_total"])
     return found[:n]
 
 

@@ -57,6 +57,11 @@ package's keys with these meanings here:
                updates params and state in place and returns them: counted)
   temp_size_in_bytes      the most live bytes during the step above the
                arguments (``peak_bytes``, the port's own key, minus them)
+  largest_bytes           the port's own: the largest single storage the
+               rank held during the step (``hlo_analysis``)
+  live_at_peak            with ``--live-at-peak N``: the N largest groups of
+               the storages live at the step's peak, by the source, shape
+               and dtype that made them (``hlo_analysis.live_at_peak``)
 
 ``xla_cost_flops``, ``generated_code_size_in_bytes`` and
 ``alias_size_in_bytes`` have no counterpart and are left out.  One
@@ -86,7 +91,7 @@ from repro_torch.configs import (
 )
 from repro_torch.convert import to_device
 from repro_torch.deploy import api
-from repro_torch.deploy.hlo_analysis import OpRecorder, analyze_hlo
+from repro_torch.deploy.hlo_analysis import OpRecorder, analyze_hlo, live_at_peak
 from repro_torch.launch.mesh import init_fake_world, make_production_mesh
 from repro_torch.models import build, input_specs
 from repro_torch.optim import adamw
@@ -214,10 +219,12 @@ def build_cell(arch: str, shape_name: str, mesh, *, seed: int = 0, device=None):
 
 
 def analyze_cell(arch: str, shape_name: str, mesh, *, device=None, fake: bool = True,
-                 seed: int = 0) -> dict:
+                 seed: int = 0, at_peak: int = 0) -> dict:
     """``build_cell`` on ``mesh`` and one run of its step, recorded by
     ``hlo_analysis``: the record's numbers.  ``fake``: the state in
-    :func:`fake_mode` (shapes only); else real tensors on ``device``."""
+    :func:`fake_mode` (shapes only); else real tensors on ``device``.
+    ``at_peak``: also record that many of the largest groups of the storages
+    live at the step's peak (``live_at_peak``)."""
     import contextlib
 
     dev = api.resolve_device(device)
@@ -225,12 +232,13 @@ def analyze_cell(arch: str, shape_name: str, mesh, *, device=None, fake: bool = 
     with fake_mode() if fake else contextlib.nullcontext():
         fn, args, _, meta = build_cell(arch, shape_name, mesh, seed=seed, device=dev)
         t_lower = time.time() - t0
-        ops = OpRecorder(dev.type)
+        ops = OpRecorder(dev.type, at_peak=at_peak > 0)
         arg_bytes = ops.track(args)
         with activation_policy(mesh, sequence_parallel=(meta["kind"] == "train")), ops:
             out = fn(*args)
         t_compile = time.time() - t0 - t_lower
     hlo = analyze_hlo(ops)
+    extra = {"live_at_peak": live_at_peak(ops, at_peak)} if at_peak else {}
     return {
         **meta,
         "lower_s": round(t_lower, 2),
@@ -246,13 +254,15 @@ def analyze_cell(arch: str, shape_name: str, mesh, *, device=None, fake: bool = 
         "output_size_in_bytes": OpRecorder.local_bytes(out, dev.type),
         "temp_size_in_bytes": hlo["peak_bytes"] - arg_bytes,
         "peak_bytes": hlo["peak_bytes"],
+        "largest_bytes": hlo["largest_bytes"],
         "n_computations": hlo["n_computations"],
         "op_counts": hlo["op_counts"],
+        **extra,
     }
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: str,
-             device=None) -> dict:
+             device=None, at_peak: int = 0) -> dict:
     """One cell in a fake world of 256 / 512 ranks (started here unless a
     world is running): its record, also written to ``out_dir``."""
     import torch.distributed as dist
@@ -271,7 +281,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: str,
         if not dist.is_initialized():
             init_fake_world(WORLD[multi_pod])
         mesh = make_production_mesh(multi_pod=multi_pod, device=dev)
-        rec.update(analyze_cell(arch, shape_name, mesh, device=dev), status="ok")
+        rec.update(analyze_cell(arch, shape_name, mesh, device=dev, at_peak=at_peak),
+                   status="ok")
     except Exception as e:  # noqa: BLE001 — failures are findings
         rec.update(status="failed", error=f"{type(e).__name__}: {e}",
                    traceback=traceback.format_exc()[-2000:])
@@ -283,9 +294,10 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: str,
 
 
 def _cell_in_child(arch: str, shape: str, multi_pod: bool, out_dir: str,
-                   device) -> subprocess.Popen:
+                   device, at_peak: int = 0) -> subprocess.Popen:
     argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
-            "--multi-pod", "on" if multi_pod else "off", "--out-dir", out_dir]
+            "--multi-pod", "on" if multi_pod else "off", "--out-dir", out_dir,
+            "--live-at-peak", str(at_peak)]
     if device is not None:
         argv += ["--device", str(device)]
     # the child finds this package where this process found it
@@ -303,7 +315,8 @@ def _cell_in_child(arch: str, shape: str, multi_pod: bool, out_dir: str,
 _START_ORDER = {"train": 0, "prefill": 1, "decode": 2}
 
 
-def run_grid(cells, *, out_dir: str, device=None, jobs: int = 1) -> list[dict]:
+def run_grid(cells, *, out_dir: str, device=None, jobs: int = 1,
+             at_peak: int = 0) -> list[dict]:
     """The records of ``cells`` ((arch, shape, multi_pod) each), in order,
     each run in a child process, ``jobs`` at a time (the costliest first),
     in a fake world of its own (a child that dies is a failed cell); each
@@ -325,7 +338,7 @@ def run_grid(cells, *, out_dir: str, device=None, jobs: int = 1) -> list[dict]:
             if not ok:
                 results[i] = run_cell(arch, shape, multi_pod=mp, out_dir=out_dir)
                 continue
-            running[i] = _cell_in_child(arch, shape, mp, out_dir, device)
+            running[i] = _cell_in_child(arch, shape, mp, out_dir, device, at_peak)
         for i, proc in list(running.items()):
             if proc.poll() is None:
                 continue
@@ -569,6 +582,9 @@ def main(argv=None) -> int:
                     help="lower with the paper's per-head MHA schedule")
     ap.add_argument("--jobs", type=int, default=1,
                     help="multi-pod cells run at once, each in a child process")
+    ap.add_argument("--live-at-peak", type=int, default=0, metavar="N",
+                    help="multi-pod: record the N largest groups of the storages live at "
+                         "each step's peak (slower)")
     args = ap.parse_args(argv)
 
     if not args.via_plan:
@@ -578,10 +594,11 @@ def main(argv=None) -> int:
         cells = [(a, s, mp) for a in archs for s in shapes for mp in pods]
         if len(cells) == 1:
             results = [run_cell(archs[0], shapes[0], multi_pod=pods[0], out_dir=args.out_dir,
-                                device=args.device)]
+                                device=args.device, at_peak=args.live_at_peak)]
             print(_summary_line(results[0]), flush=True)
         else:
-            results = run_grid(cells, out_dir=args.out_dir, device=args.device, jobs=args.jobs)
+            results = run_grid(cells, out_dir=args.out_dir, device=args.device, jobs=args.jobs,
+                               at_peak=args.live_at_peak)
         n_ok = sum(r["status"] == "ok" for r in results)
         n_skip = sum(r["status"] == "skipped" for r in results)
         n_fail = sum(r["status"] == "failed" for r in results)

@@ -141,7 +141,7 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False,
         x = checkpoint(body, x, lp, memory, use_reentrant=False) if remat \
             else body(x, lp, memory)
     x = constrain(L.norm_apply(cfg.norm, params["dec_final"], x), "gathered")
-    return L.matmul(x, params["lm_head"]["w"])
+    return L.head_logits(x, params["lm_head"]["w"])
 
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False,

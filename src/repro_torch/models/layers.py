@@ -98,6 +98,33 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return grad_as_output(x @ w)
 
 
+def head_logits(x: torch.Tensor, w: torch.Tensor, *, tied: bool = False) -> torch.Tensor:
+    """``x @ w``: an LM head's logits, ``w [D, V]`` its weight, or with
+    ``tied`` the embedding table ``[V, D]`` (``x @ w.T``).
+
+    On a sharded step (DTensors) the product runs on each rank's shards
+    (``activations.local_shards``): ``x``'s rows split over the data axes,
+    the weight whole along D (FSDP's gather) and split over "model" along
+    the vocab where it divides it, so the logits come out as the loss
+    takes them, ``[B/data, S, V/model]``.  DTensor's own rule may instead
+    contract over an FSDP-split D and leave every rank a sum still to
+    reduce of the whole batch's logits."""
+    fn = (lambda a, t: matmul(a, t.T)) if tied else matmul
+    if not _is_dtensor(x) and not _is_dtensor(w):
+        return fn(x, w)
+    from repro_torch.runtime import activations as A
+    from repro_torch.runtime.sharding import P, data_axes
+
+    mesh = (x if _is_dtensor(x) else w).device_mesh
+    da = data_axes(mesh)
+    b_ax = da if A.fits(x.shape[0], da, mesh) else None
+    v_ax = "model" if A.fits(w.shape[0 if tied else 1], "model", mesh) else None
+    rows = (None,) * (x.dim() - 2)
+    return A.local_shards(fn, (x, w), (P(b_ax, *rows, None),
+                                       P(v_ax, None) if tied else P(None, v_ax)),
+                          P(b_ax, *rows, v_ax), mesh=mesh)
+
+
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """``table[tokens]``: the embedding gather.
 
@@ -187,20 +214,99 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
-def mask_padded_logits(logits: torch.Tensor, vocab: int) -> torch.Tensor:
-    """-1e9 on the vocab-padding classes before softmax / cross-entropy."""
-    if logits.shape[-1] == vocab:
+def mask_padded_logits(logits: torch.Tensor, vocab: int, start: int = 0) -> torch.Tensor:
+    """-1e9 on the vocab-padding classes before softmax / cross-entropy.
+    ``start``: the global index of ``logits``' first class (a rank's shard
+    of the vocab); a class is padding where its global index is ``>= vocab``."""
+    if start + logits.shape[-1] <= vocab:
         return logits
-    ids = torch.arange(logits.shape[-1], device=logits.device)
+    ids = torch.arange(logits.shape[-1], device=logits.device) + start
     return torch.where(ids < vocab, logits, torch.full_like(logits, -1e9))
 
 
 def token_nll(logits: torch.Tensor, labels: torch.Tensor, vocab: int) -> torch.Tensor:
     """Mean cross-entropy of ``labels`` under ``logits`` (vocab padding
-    masked; log-softmax in float32): the LMs' ``loss_fn``."""
+    masked; log-softmax in float32): the LMs' ``loss_fn``.
+
+    On a sharded step (DTensors) it runs on each rank's shards
+    (:func:`_token_nll_sharded`): no rank makes a tensor of the global
+    logits' shape."""
+    if _is_dtensor(logits):
+        return _token_nll_sharded(logits, labels, vocab)
     logits = mask_padded_logits(logits, vocab)
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     return -torch.gather(logp, -1, labels.long()[..., None])[..., 0].mean()
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """``sum(-log softmax(x)[label]) / n`` over the rows of a rank's shard
+    ``x`` of the vocab (global classes ``[start, start + x.shape[-1])``),
+    the softmax taken over the whole vocab: the row max, the sum of
+    ``exp(x - max)`` and the label's logit (picked by the rank that holds
+    it) are reduced over ``group``.  The backward, ``(softmax - onehot) *
+    g / n`` on the shard, moves nothing."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, vocab, start, n, group):
+        from torch.distributed import _functional_collectives as funcol
+
+        def reduce(t, op):
+            return funcol.wait_tensor(funcol.all_reduce(t, op, group))
+
+        x = mask_padded_logits(logits.to(torch.float32), vocab, start)
+        m = reduce(x.amax(-1), "max")
+        s = reduce(torch.exp(x - m[..., None]).sum(-1), "sum")
+        idx = labels.long() - start
+        inside = (idx >= 0) & (idx < x.shape[-1])
+        picked = torch.gather(x, -1, torch.where(inside, idx, 0)[..., None])[..., 0]
+        picked = reduce(picked * inside.to(picked.dtype), "sum")
+        ctx.save_for_backward(logits, idx, inside, m, s)
+        ctx.vocab, ctx.start, ctx.n = vocab, start, n
+        return (torch.log(s) + m - picked).sum() / n
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, idx, inside, m, s = ctx.saved_tensors
+        x = mask_padded_logits(logits.to(torch.float32), ctx.vocab, ctx.start)
+        p = torch.exp(x - m[..., None]).div_(s[..., None])
+        p.scatter_add_(-1, torch.where(inside, idx, 0)[..., None],
+                       -inside[..., None].to(p.dtype))
+        return p.mul_(g / ctx.n).to(logits.dtype), None, None, None, None, None
+
+
+def _token_nll_sharded(logits, labels, vocab: int):
+    """:func:`token_nll` of DTensor ``logits [B, S, V]`` on each rank's
+    shards (``activations.local_shards``), as ``embed_lookup`` gathers:
+    the batch split over the data axes, the vocab over "model" where it
+    divides it (``_VocabParallelNLL``), else whole (the plain loss on the
+    rank's rows).  Each rank's share of the mean (its rows' sum over the
+    global token count) is reduced over the data axes."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    from repro_torch.runtime import activations as A
+    from repro_torch.runtime.sharding import P, axis_names, data_axes, placements
+
+    mesh = logits.device_mesh
+    names, da = axis_names(mesh), data_axes(mesh)
+    b_ax = da if A.fits(labels.shape[0], da, mesh) else None
+    n, v = labels.numel(), logits.shape[-1]
+    m = names.index("model") if "model" in names else None
+    if m is None or mesh.size(m) == 1 or not A.fits(v, "model", mesh):
+        def nll(lg, lb):
+            loss = token_nll(lg, lb, vocab)
+            return loss if lb.numel() == n else loss * (lb.numel() / n)
+        v_ax = None
+    else:
+        start, group = mesh.get_local_rank(m) * (v // mesh.size(m)), mesh.get_group(m)
+
+        def nll(lg, lb):
+            return _VocabParallelNLL.apply(lg, lb, vocab, start, n, group)
+        v_ax = "model"
+    spec = P(b_ax, *([None] * (logits.dim() - 2)), v_ax)
+    out_pl = tuple(Partial() if p.is_shard(0) else Replicate() for p in placements(mesh, spec))
+    return A._reduced(A.local_shards(nll, (logits, labels),
+                                     (spec, P(b_ax, *([None] * (labels.dim() - 1)))),
+                                     out_pl, mesh=mesh))
 
 
 def mlp_forward(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:

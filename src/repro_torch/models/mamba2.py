@@ -225,7 +225,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32, device=None
 
 def _head(params: dict, x: torch.Tensor) -> torch.Tensor:
     x = constrain(L.norm_apply("rmsnorm", params["final_norm"], x), "gathered")
-    return L.matmul(x, params["lm_head"]["w"])
+    return L.head_logits(x, params["lm_head"]["w"])
 
 
 def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False,

@@ -204,13 +204,12 @@ def embed_input(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
 
 def lm_head(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     x = L.norm_apply(cfg.norm, params["final_norm"], x)
-    # gather the sequence before the vocab-parallel product: the product
-    # views [B, S] as one dim, which DTensor 2.11 refuses for a batch and
-    # a sequence both sharded
+    # gather the sequence before the vocab-parallel product, which runs on
+    # each rank's rows (layers.head_logits)
     x = constrain(x, "gathered")
     if cfg.tie_embeddings:
-        return L.matmul(x, params["embed"]["table"].T)
-    return L.matmul(x, params["lm_head"]["w"])
+        return L.head_logits(x, params["embed"]["table"], tied=True)
+    return L.head_logits(x, params["lm_head"]["w"])
 
 
 def forward(cfg: ArchConfig, params: dict, batch: dict, *, qat: bool = False,

@@ -127,7 +127,7 @@ def _shared_attn_i8(cfg: ArchConfig, sp: dict, sq: dict, x: torch.Tensor, positi
 
 def _head(params: dict, x: torch.Tensor) -> torch.Tensor:
     x = constrain(L.norm_apply("rmsnorm", params["final_norm"], x), "gathered")
-    return L.matmul(x, params["lm_head"]["w"])
+    return L.head_logits(x, params["lm_head"]["w"])
 
 
 def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False,

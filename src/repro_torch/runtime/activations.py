@@ -23,7 +23,8 @@ step, not across threads that run other steps.
 ``local_shards`` runs a function on each rank's shards with stated
 placements (the products and scans whose DTensor rules differ between
 torch versions: attention, the SSD scan, the expert products, the
-vocab-parallel embedding, the exact integer products).
+vocab-parallel embedding, the LM head and its loss, the exact integer
+products).
 """
 
 from __future__ import annotations

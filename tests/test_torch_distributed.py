@@ -7,7 +7,8 @@ elastic 8 -> 4 re-mesh and the mesh builders on all 8; then, on groups of
 ``pipelined_apply`` at 4 stages, the FSDP placement of a layer leaf on
 2x2, ``constrain``'s placements for every kind, reduced OLMo-1B's
 ``shard_train_fn`` steps on 2x2 and 4x1, one sharded step of every other
-arch, and the refusal of an op DTensor cannot shard.  Sharded
+arch, the refusal of an op DTensor cannot shard, and the vocab-parallel
+cross-entropy against the loss of the gathered logits.  Sharded
 checkpoints: a ``Supervisor`` restart around the 2x2 step, run by both
 halves at once as replicas of one job (rank 0 writes, half B restores
 half A's files), equals the uninterrupted sharded run bit for bit in
@@ -246,6 +247,32 @@ def test_constrain_placements_equal_reference(runs):
         assert have == placements(mesh, spec), (sp, gb, kind, shape, want, have)
         n_moved += any(p != Replicate() for p in have)
     assert n_moved >= 10
+
+
+@pytest.mark.parametrize("vocab", R.NLL_VOCABS)
+def test_vocab_parallel_token_nll_equals_the_gathered_loss(runs, vocab):
+    """``token_nll`` of logits split over "data" (rows) and "model" (the
+    vocab) on 2x2, or whole there, against ``token_nll`` of the whole
+    logits: float32 sums in another order (loss rtol 1e-6, gradient rtol
+    1e-5, atol 1e-12); on 1x1, the same ops: bit for bit.  The loss comes
+    back replicated; the padded classes get no gradient."""
+    from repro_torch.models import layers as L
+
+    logits, labels = R.nll_inputs(vocab)
+    x = logits.clone().requires_grad_(True)
+    want = L.token_nll(x, labels, vocab)
+    want.backward()
+    got = runs["w4"]["vocab_nll"]
+    for layout in R.NLL_LAYOUTS:
+        loss, grad, pl = got[(vocab, layout)]
+        assert pl == ["Replicate()"] * 2, layout
+        np.testing.assert_allclose(loss.numpy(), want.detach().numpy(), rtol=1e-6,
+                                   err_msg=layout)
+        np.testing.assert_allclose(grad.numpy(), x.grad.numpy(), rtol=1e-5, atol=1e-12,
+                                   err_msg=layout)
+        assert not grad[..., vocab:].any(), layout
+    loss, grad, _ = got[(vocab, "1x1")]
+    assert torch.equal(loss, want.detach()) and torch.equal(grad, x.grad)
 
 
 def _unsharded_olmo(inputs, microbatches):

@@ -53,6 +53,12 @@ ARCH_BATCH, ARCH_SEQ = 4, 16
 #: the supervised restart of reduced OLMo-1B's 2x2 step (half A): a save
 #: every 2 steps, one failure injected at step 3, 4 steps
 RESTART = dict(save_every=2, fail_at=3, steps=4)
+#: the vocab-parallel loss's cases: [B, S, V_padded] float32 logits and
+#: the vocab each masks (512: none of the classes is padding; 500: the
+#: last 12 of "model" rank 1's shard are), and the layouts the logits come
+#: in on 2x2 (the product's, and a whole tensor the loss must slice)
+NLL_SHAPE, NLL_VOCABS = (4, 6, 512), (512, 500)
+NLL_LAYOUTS = ("batch-vocab", "whole")
 
 
 def _placed_as_rules(tree, shardings) -> list[str]:
@@ -396,9 +402,54 @@ def _custom_op_step(mesh):
     return None
 
 
-def _four_rank_checks(rank: int, inputs: dict, pods, mesh) -> dict:
-    """compressed_psum, the pipeline, the FSDP placement and constrain, on
-    ranks 0-3."""
+def nll_inputs(vocab: int):
+    """Logits and labels for the loss's cases, from a seeded numpy
+    generator: labels on each "model" shard's first and last class and on
+    the last real class, the others random; the padded classes' logits
+    large, so that a class left unmasked would move the loss."""
+    import numpy as np
+
+    b, s, v = NLL_SHAPE
+    rng = np.random.default_rng(vocab)
+    logits = rng.standard_normal(NLL_SHAPE).astype(np.float32) * 3
+    logits[..., vocab:] = 40.0
+    labels = rng.integers(0, vocab, (b, s))
+    half = v // 2
+    special = [0, half - 1, half, min(v, vocab) - 1]
+    labels[:, :len(special)] = special  # every row of the batch, both data shards
+    return torch.from_numpy(logits), torch.from_numpy(labels.astype(np.int32))
+
+
+def _vocab_nll(mesh, mesh11) -> dict:
+    """``token_nll`` of DTensor logits on the 2x2 ``mesh`` (and, where
+    ``mesh11`` is given, on that 1x1 mesh), the loss and the logits'
+    gradient gathered, for every case."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models import layers as L
+
+    layouts = {"batch-vocab": [Shard(0), Shard(2)], "whole": [Replicate(), Replicate()]}
+    out = {}
+    for vocab in NLL_VOCABS:
+        logits, labels = nll_inputs(vocab)
+        cases = [(name, mesh, layouts[name]) for name in NLL_LAYOUTS]
+        if mesh11 is not None:
+            cases.append(("1x1", mesh11, [Replicate(), Replicate()]))
+        for name, m, pl in cases:
+            x = distribute_tensor(logits, m, pl).requires_grad_(True)
+            y = distribute_tensor(labels, m, [Shard(0) if pl[0] == Shard(0) else Replicate(),
+                                              Replicate()])
+            loss = L.token_nll(x, y, vocab)
+            loss.backward()
+            out[(vocab, name)] = (loss.full_tensor().detach(), x.grad.full_tensor(),
+                                  [repr(p) for p in loss.placements])
+    return out
+
+
+def _four_rank_checks(rank: int, inputs: dict, pods, mesh, mesh11) -> dict:
+    """compressed_psum, the pipeline, the FSDP placement, constrain and the
+    vocab-parallel loss, on ranks 0-3 (the loss also on rank 0's 1x1
+    ``mesh11``)."""
     from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
     from repro_torch.optim.compression import compressed_psum
@@ -450,6 +501,7 @@ def _four_rank_checks(rank: int, inputs: dict, pods, mesh) -> dict:
             cases[(pol, kind, shape)] = None if same[0] else tuple(got[0].placements)
     res["constrain"] = cases
     res["custom_op"] = _custom_op_step(mesh)
+    res["vocab_nll"] = _vocab_nll(mesh, mesh11 if rank == 0 else None)
     res["int8"] = _int8_chain(mesh, inputs["qp"], inputs["tokens"])
     return res
 
@@ -492,12 +544,13 @@ def world8(rank: int, world: int, out: str, archs: list) -> None:
     meshes = {(half, shape): make_mesh(shape, names, device="cpu", ranks=range(lo, lo + 4))
               for half, lo in (("A", 0), ("B", 4)) for shape in ((2, 2), (4, 1), (1, 4))}
     pods = make_mesh((4,), ("pod",), device="cpu", ranks=range(4))
+    mesh11 = make_mesh((1, 1), names, device="cpu", ranks=range(1))
     half = "A" if rank < 4 else "B"
     t0 = time.perf_counter()
     res["restart"] = _error(_supervised_restart, meshes[(half, (2, 2))], out, inputs["olmo"])
     res["restart"]["seconds"] = time.perf_counter() - t0
     if half == "A":
-        res.update(_four_rank_checks(rank, inputs, pods, meshes[("A", (2, 2))]))
+        res.update(_four_rank_checks(rank, inputs, pods, meshes[("A", (2, 2))], mesh11))
     for case in OLMO_STEPS:
         if (case in HALF_B_STEPS) == (half == "B"):
             res[("olmo", *case)] = _olmo_steps(meshes[(half, case[0])], inputs["olmo"],
