@@ -207,7 +207,8 @@ exit code and no result line):
    3 batches, against the unsharded step in the same call: losses, grad
    norms and params equal (else held to ``[train]``'s tolerances, the
    difference printed), every param and AdamW leaf on the rules'
-   placements, the step times side by side; (b) ``compressed_psum`` on
+   placements, the step times side by side, and the sharded steps' peak
+   allocation within ``DIST_PEAK_RTOL`` of the unsharded steps'; (b) ``compressed_psum`` on
    the card over that group, bit-exact with ``compress`` -> ``decompress``
    on the CPU; (d) on that mesh, OLMo-1B at full width cut to 2 layers
    through the sharded step under ``Supervisor(save_every=2)`` over 6
@@ -233,7 +234,8 @@ exit code and no result line):
    of its own (``MULTIPOD_JOBS`` at a time; ``MULTIPOD_EARLY``, the
    costliest, each started niced when the script starts), every record ``ok``,
    its flops, collective bytes by op, argument and temp bytes a rank and
-   host seconds printed.
+   host seconds printed, and each train cell's temp a rank within
+   ``MULTIPOD_XLA_RATIO`` of GSPMD's (``MULTIPOD_XLA_TEMP``).
 
 It prints the kernels line (JSON), the nvidia-smi line, and last the
 contract line {"ok": true, "device": {...}}.  It exits non-zero, printing
@@ -2783,6 +2785,9 @@ DIST_SPAWN = dict(world=4, pipe_d=2048, pipe_batch=16, timeout=300)
 #: steps uninterrupted.  The multi-rank saves and restores (8 -> 4 ranks)
 #: run on gloo CPU ranks in tests/test_torch_distributed.py: over gloo an
 #: all-gather of CUDA tensors kills the rank (ROADMAP.md section 3)
+#: (a): the sharded steps' peak allocation within this share of the
+#: unsharded steps' (the same state and activations on a world of one)
+DIST_PEAK_RTOL = 0.05
 DIST_CKPT = dict(n_layers=2, save_every=2, steps=6, fail_at=3)
 
 
@@ -3089,10 +3094,12 @@ def distributed_phase(torch, card: str, dev, reduced_cfg: bool = False) -> dict[
         params = api.init_params(SEED, device=None if on_card else dev)
         if on_card:
             torch.cuda.reset_peak_memory_stats()
-        want, t_plain, p_plain, _ = _olmo_steps_on(torch, api, params, batches, step, sync)
+        want, t_plain, p_plain, o_plain = _olmo_steps_on(torch, api, params, batches, step, sync)
         peak_plain = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
         p_plain = tree_map(lambda t: t.cpu(), p_plain)
-        del params
+        # the unsharded run's state freed before the sharded run's peak is
+        # read: its AdamW moments (9.42 GB) would count in it
+        del params, o_plain
         if on_card:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -3117,6 +3124,10 @@ def distributed_phase(torch, card: str, dev, reduced_cfg: bool = False) -> dict[
         n = sum(d.numel() for d in diff)
         share = sum(int((d > TRAIN_TIGHT).sum()) for d in diff) / n
         exact = got == want and worst == 0.0
+        if on_card:
+            require(abs(peak - peak_plain) <= DIST_PEAK_RTOL * peak_plain,
+                    f"(a) torch.cuda.max_memory_allocated sharded {peak:.2f} GB vs unsharded "
+                    f"{peak_plain:.2f} GB: beyond {DIST_PEAK_RTOL:.0%}")
         if not exact:  # hold it to [train]'s tolerances, and say by how much
             _compare_steps(torch, (got, leaves), (want, list(tree_leaves(p_plain))), False,
                            "(a) sharded vs unsharded")
@@ -3159,8 +3170,9 @@ def distributed_phase(torch, card: str, dev, reduced_cfg: bool = False) -> dict[
     finally:
         dist.destroy_process_group()
         if on_card:
-            # the sharded steps leave reference cycles that hold device
-            # tensors: collect them before (c)'s ranks take the card
+            # whatever earlier phases left in reference cycles goes before
+            # (c)'s ranks take the card (the sharded steps leave none:
+            # tests/test_torch_distributed.py holds that on the CPU)
             gc.collect()
             torch.cuda.empty_cache()
 
@@ -3218,6 +3230,16 @@ MULTIPOD_JOBS = 8
 #: records
 MULTIPOD_EARLY = [("zamba2-2.7b", "long_500k", False), ("llava-next-34b", "train_4k", False)]
 MULTIPOD_DIR = ROOT / "build" / "multipod"
+#: [multipod] (i): GSPMD's temp bytes a rank for the train cells it runs,
+#: XLA's memory_analysis of the reference's own cell on 256 forced host
+#: devices (JAX 0.9 on a CPU): ``PYTHONPATH=src python tests/xla_memory.py
+#: --arch olmo-1b qwen2-moe-a2.7b mamba2-370m granite-moe-3b-a800m
+#: llava-next-34b --shape train_4k``; the port's temp a rank must stay
+#: within MULTIPOD_XLA_RATIO of it
+MULTIPOD_XLA_TEMP = {"olmo-1b": 7438979200, "qwen2-moe-a2.7b": 8409938120,
+                     "mamba2-370m": 32890216456, "granite-moe-3b-a800m": 8909305408,
+                     "llava-next-34b": 10624594776}
+MULTIPOD_XLA_RATIO = 1.5
 
 
 def start_early_cells(dev_type: str) -> list:
@@ -3422,11 +3444,20 @@ def multipod_phase(torch, card: str, dev, early=()) -> dict[str, int]:
         require(r["status"] == "ok", f"(i) {r['arch']} {r['shape']} {r['mesh']}: "
                 f"{r.get('error', r.get('reason', ''))[:1500]}")
         c = r["collectives"]
+        xla = ""
+        if r["kind"] == "train" and r["mesh"] == "16x16":
+            ratio = r["temp_size_in_bytes"] / MULTIPOD_XLA_TEMP[r["arch"]]
+            require(ratio <= MULTIPOD_XLA_RATIO,
+                    f"(i) {r['arch']} {r['shape']}: temp a rank "
+                    f"{r['temp_size_in_bytes'] / 1e9:.3f} GB is {ratio:.3f}x XLA's "
+                    f"{MULTIPOD_XLA_TEMP[r['arch']] / 1e9:.3f} GB (bound {MULTIPOD_XLA_RATIO})")
+            xla = (f" ({ratio:.3f}x XLA's {MULTIPOD_XLA_TEMP[r['arch']] / 1e9:.3f} GB, "
+                   f"tests/xla_memory.py; bound {MULTIPOD_XLA_RATIO})")
         log(f"  [multipod] (i) {r['arch']} {r['shape']} {r['mesh']}: {r['flops']:.4e} flops a "
             f"rank, collective bytes {json.dumps(c['bytes_by_op'])} ({c['total_bytes']:.4e} "
             f"in {sum(c['op_counts'].values())} ops), arguments "
             f"{r['argument_size_in_bytes'] / 1e9:.3f} GB, temp "
-            f"{r['temp_size_in_bytes'] / 1e9:.3f} GB a rank, largest storage "
+            f"{r['temp_size_in_bytes'] / 1e9:.3f} GB a rank{xla}, largest storage "
             f"{r['largest_bytes'] / 1e9:.3f} GB; host s: build {r['lower_s']}, "
             f"step {r['compile_s']}")
     log(f"  [multipod] (i) {len(recs)} cells ok; {len(MULTIPOD_CELLS)} in {wall:.1f}s "

@@ -34,18 +34,90 @@ from repro_torch.runtime.sharding import (
     param_shardings,
 )
 
+try:
+    from torch.distributed.tensor import DTensor
+except ImportError:  # a torch built without distributed support
+    DTensor = ()
+
+
+def _placed_as(leaf):
+    """A gradient hook: the gradient of the DTensor ``leaf`` redistributed
+    to ``leaf``'s placements, and waited on, as soon as the backward has
+    made it.  A weight that a product gathered (FSDP's split over "data")
+    gets its gradient at the gathered shape, a sum over "data" still to
+    reduce: reduce-scattered here, within the layer's backward, it is held
+    as the leaf's shard, not whole until the backward ends (ZeRO-3, as
+    GSPMD lays it out).  The sums are those the accumulation would reduce."""
+    mesh, want = leaf.device_mesh, tuple(leaf.placements)
+
+    def hook(g):
+        return g if tuple(g.placements) == want else g.redistribute(mesh, want)
+
+    return hook
+
 
 def _value_and_grad(loss_fn, params, batch):
     """(loss, grads) of ``loss_fn(params, batch)``: ``jax.value_and_grad``.
     The grads are new tensors shaped like ``params`` (zero where the loss
-    does not reach a leaf); ``params`` are left as they are."""
+    does not reach a leaf); ``params`` are left as they are.  A DTensor
+    leaf's gradient comes back in the leaf's placements (``_placed_as``)."""
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
     leaves = list(tree_leaves(live))
+    for t in leaves:
+        if isinstance(t, DTensor):
+            t.register_hook(_placed_as(t))
     with torch.enable_grad():
         loss = loss_fn(live, batch)
         grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True,
                                          materialize_grads=True))
     return loss.detach(), tree_map(lambda _: next(grads), params)
+
+
+def _microbatch_rows(v, microbatches: int) -> list:
+    """``v``'s microbatches: rows ``[i * mb, (i + 1) * mb)`` for each ``i``
+    (the reference's reshape to ``[microbatches, mb, ...]``).
+
+    A DTensor whose rows are split over the data axes keeps each
+    microbatch split over them: one all-to-all hands each rank its share
+    of every microbatch, as GSPMD reshards the reference's reshape.  A
+    slice of the DTensor would gather the whole batch on every rank for
+    each microbatch.  Rows that are whole, or a microbatch that the data
+    ranks do not split evenly, are sliced."""
+    mb = v.shape[0] // microbatches
+    dims = [] if not isinstance(v, DTensor) else \
+        [d for d, p in enumerate(v.placements) if p.is_shard(0)]
+    if not dims:
+        return [v[i * mb:(i + 1) * mb] for i in range(microbatches)]
+    import torch.distributed._functional_collectives as funcol
+
+    mesh = v.device_mesh
+    names = tuple(mesh.mesh_dim_names[d] for d in dims)
+    if len(names) == 1:
+        sub = mesh[names[0]]
+    else:  # ("pod", "data"): one group, pod-major as the shards are
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+        with unset_fake_temporarily():  # the mesh's own ranks, in a dry run too
+            sub = mesh[names]._flatten()
+    n, r = sub.size(), sub.get_local_rank()
+    if mb % n:
+        return [v[i * mb:(i + 1) * mb] for i in range(microbatches)]
+    # the batch as chunks of c rows: chunk q is row block q % n of
+    # microbatch q // n, and rank r holds chunks [r * M, (r + 1) * M)
+    c, m_ = mb // n, microbatches
+    dest = [(r * m_ + m) % n for m in range(m_)]
+    order = sorted(range(m_), key=lambda m: (dest[m], m))
+    local = v.to_local()
+    send = local.reshape(m_, c, *local.shape[1:])[order].reshape(local.shape)
+    recv = funcol.all_to_all_single(
+        send, [c * sum((q * m_ + m) % n == r for m in range(m_)) for q in range(n)],
+        [c * dest.count(s) for s in range(n)], sub.get_group())
+    recv = funcol.wait_tensor(recv)  # chunks in microbatch order
+    shape = (mb, *v.shape[1:])
+    stride = torch.empty(shape, device="meta").stride()
+    return [DTensor.from_local(recv[i * c:(i + 1) * c], mesh, v.placements, run_check=False,
+                               shape=torch.Size(shape), stride=stride)
+            for i in range(microbatches)]
 
 
 def make_train_step(
@@ -75,15 +147,12 @@ def make_train_step(
         if microbatches == 1:
             loss, grads = _value_and_grad(loss_with_remat, params, batch)
         else:
-            # microbatch i is rows [i * mb, (i + 1) * mb): the reference's
-            # reshape to [microbatches, mb, ...], taken as slices so that a
-            # batch sharded over more ranks than mb rows splits too
-            mb = next(iter(batch.values())).shape[0] // microbatches
+            rows = {k: _microbatch_rows(v, microbatches) for k, v in batch.items()}
             loss = torch.zeros((), dtype=torch.float32, device=next(tree_leaves(params)).device)
             grads = tree_map(lambda p: torch.zeros_like(p, dtype=grad_accum_dtype), params)
             for i in range(microbatches):
                 mb_loss, mb_grads = _value_and_grad(
-                    loss_with_remat, params, {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()})
+                    loss_with_remat, params, {k: v[i] for k, v in rows.items()})
                 for a, g in zip(tree_leaves(grads), tree_leaves(mb_grads)):
                     a.add_((g / microbatches).to(grad_accum_dtype))
                 loss = loss + mb_loss / microbatches

@@ -72,14 +72,20 @@ def _segsum(a: torch.Tensor) -> torch.Tensor:
     return diff.masked_fill(~lower, float("-inf"))
 
 
+def _conv_state(x: torch.Tensor, state=None):
+    """The trailing context [B, D_CONV - 1, C] before ``x`` [B, S, C]:
+    ``state`` (decode), or zeros."""
+    if state is None:
+        state = torch.zeros((x.shape[0], D_CONV - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    return state
+
+
 def _conv1d_causal(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, state=None):
     """Depthwise causal conv of width D_CONV. x [B, S, C], w [D_CONV, C].
 
     ``state`` [B, D_CONV - 1, C] holds the trailing context (decode);
     returns (y, new_state)."""
-    if state is None:
-        state = torch.zeros((x.shape[0], D_CONV - 1, x.shape[2]), dtype=x.dtype, device=x.device)
-    xp = torch.cat([state, x], dim=1)
+    xp = torch.cat([_conv_state(x, state), x], dim=1)
     s = x.shape[1]
     y = xp[:, 0:s] * w[0]
     for i in range(1, D_CONV):
@@ -143,6 +149,24 @@ def _ssd_local(x, dta, Bm, Cm, chunk: int, init_state=None):
                         specs[:len(args)], [xs, ss], mesh=mesh)
 
 
+def _saving_less(fn, *args):
+    """``fn(*args)``; where the result is differentiated, ``fn``'s
+    intermediates are made again in the backward from ``args`` instead of
+    kept (``torch.utils.checkpoint`` of an elementwise stretch: the same
+    values bit for bit, and no remat of the layer, which the JAX package
+    does not do here either).  Eager autograd keeps each elementwise
+    result that XLA fuses away: the SiLUs' sigmoids and products, the
+    causal conv's padded input and its partial sums."""
+    if torch.is_grad_enabled() and any(isinstance(a, torch.Tensor) and a.requires_grad
+                                       for a in args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _conv_silu(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor, state) -> torch.Tensor:
+    return L.silu(_conv1d_causal(xbc, w, b, state)[0])
+
+
 def _in_proj(cfg: ArchConfig, bp: dict, u: torch.Tensor, conv_state):
     d_inner, n_heads, conv_dim = dims(cfg)
     h = L.norm_apply("rmsnorm", bp["norm"], u)
@@ -151,14 +175,22 @@ def _in_proj(cfg: ArchConfig, bp: dict, u: torch.Tensor, conv_state):
     h = constrain(h, "gathered")
     zxbcdt = L.linear(bp["in_proj"], h)
     z, xbc, dt_raw = torch.split(zxbcdt, [d_inner, conv_dim, n_heads], dim=-1)
-    xbc, new_conv = _conv1d_causal(xbc, bp["conv_w"], bp["conv_b"], conv_state)
-    x, Bm, Cm = torch.split(L.silu(xbc), [d_inner, N_GROUPS * cfg.ssm_state,
-                                          N_GROUPS * cfg.ssm_state], dim=-1)
+    xbc_act = _saving_less(_conv_silu, xbc, bp["conv_w"], bp["conv_b"], conv_state)
+    # the conv's new state, from the last rows alone: the whole padded
+    # input stays inside _conv_silu, made again in the backward
+    new_conv = torch.cat([_conv_state(xbc, conv_state), xbc[:, -(D_CONV - 1):]],
+                         dim=1)[:, -(D_CONV - 1):]
+    x, Bm, Cm = torch.split(xbc_act, [d_inner, N_GROUPS * cfg.ssm_state,
+                                      N_GROUPS * cfg.ssm_state], dim=-1)
     return z, x, Bm, Cm, dt_raw, new_conv
 
 
+def _gate_norm(y: torch.Tensor, z: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    return L.norm_apply("rmsnorm", {"g": g}, y * L.silu(z))
+
+
 def _out(bp: dict, u: torch.Tensor, y: torch.Tensor, z: torch.Tensor):
-    y = L.norm_apply("rmsnorm", bp["out_norm"], y * L.silu(z))
+    y = _saving_less(_gate_norm, y, z, bp["out_norm"]["g"])
     return u + constrain(L.linear(bp["out_proj"], y), "residual")
 
 

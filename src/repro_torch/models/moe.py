@@ -117,25 +117,49 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _route(cfg: ArchConfig, router_w: torch.Tensor, h_f32: torch.Tensor):
-    """h [G, g, D] -> dispatch [G, g, E, C] (0/1), combine [G, g, E, C]
-    float32, and the load-balance loss.  On DTensors each rank routes its
+def _route_slots(cfg: ArchConfig, router_w: torch.Tensor, h_f32: torch.Tensor):
+    """h [G, g, D] -> each (token, k)'s slot ``cell`` [G, g, K] (expert x C
+    + its place in the expert's queue), ``keep`` [G, g, K] (the slot is
+    within capacity), ``weight`` [G, g, K] float32 (its normalised router
+    weight, 0 where dropped), and the load-balance loss: the routing
+    without its dense [G, g, E, C] masks.  On DTensors each rank routes its
     own groups (``local_shards``: routing is independent across groups),
     and the loss averages the groups' terms as DTensor ops."""
     if isinstance(h_f32, DTensor):
         g_ax = _group_axes(h_f32)
-        spec = P(g_ax, None, None, None)
-        dispatch, combine, terms = local_shards(
+        spec = P(g_ax, None, None)
+        cell, keep, weight, terms = local_shards(
             lambda w, h: _route_groups(cfg, w, h), (router_w, h_f32),
-            (P(None, None), P(g_ax, None, None)), [spec, spec, P(g_ax)])
+            (P(None, None), spec), [spec, spec, spec, P(g_ax)])
     else:
-        dispatch, combine, terms = _route_groups(cfg, router_w, h_f32)
-    return dispatch, combine, terms.mean() * cfg.n_experts
+        cell, keep, weight, terms = _route_groups(cfg, router_w, h_f32)
+    return cell, keep, weight, terms.mean() * cfg.n_experts
+
+
+def _route(cfg: ArchConfig, router_w: torch.Tensor, h_f32: torch.Tensor):
+    """h [G, g, D] -> dispatch [G, g, E, C] (0/1), combine [G, g, E, C]
+    float32, and the load-balance loss: the reference's dense form of
+    ``_route_slots`` (the integer path's), each (token, k) owning one (expert,
+    slot) cell, so every entry is exactly 0, 1 or the token's weight."""
+    e, cap = n_experts_padded(cfg), capacity(cfg, h_f32.shape[1])
+
+    def dense(cell, keep, weight):
+        return (_slot_mask(cell, keep, e, cap, 0, torch.float32),
+                _slot_mask(cell, weight, e, cap, 0, torch.float32))
+
+    cell, keep, weight, aux = _route_slots(cfg, router_w, h_f32)
+    if isinstance(cell, DTensor):
+        g_ax = _group_axes(cell)
+        spec, out = P(g_ax, None, None), P(g_ax, None, None, None)
+        dispatch, combine = local_shards(dense, (cell, keep, weight), (spec,) * 3, [out, out])
+    else:
+        dispatch, combine = dense(cell, keep, weight)
+    return dispatch, combine, aux
 
 
 def _route_groups(cfg: ArchConfig, router_w: torch.Tensor, h_f32: torch.Tensor):
-    """``_route`` of plain tensors, with the load-balance loss as its [G]
-    per-group terms."""
+    """``_route_slots`` of plain tensors, with the load-balance loss as its
+    [G] per-group terms."""
     e = n_experts_padded(cfg)
     n_g, g_tokens, _ = h_f32.shape
     cap = capacity(cfg, g_tokens)
@@ -153,12 +177,9 @@ def _route_groups(cfg: ArchConfig, router_w: torch.Tensor, h_f32: torch.Tensor):
     pos = ((torch.cumsum(flat, dim=1) - flat) * flat).sum(-1).reshape(topi.shape)
     keep = pos < cap
     cell = topi * cap + torch.clamp(pos, max=cap - 1)  # distinct per token
-    zeros = torch.zeros((n_g, g_tokens, e * cap), dtype=torch.float32, device=h_f32.device)
-    dispatch = zeros.scatter(2, cell, keep.to(torch.float32)).reshape(n_g, g_tokens, e, cap)
-    combine = zeros.scatter(2, cell, topv * keep).reshape(n_g, g_tokens, e, cap)
     terms = _load_balance_terms(probs[..., : cfg.n_experts],
                                 onehot[..., : cfg.n_experts].to(torch.float32))
-    return dispatch, combine, terms
+    return cell, keep, topv * keep, terms
 
 
 def _load_balance_terms(probs: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
@@ -200,37 +221,64 @@ def _group(x: torch.Tensor, g: int):
 def moe_ffn(cfg: ArchConfig, p: dict, h: torch.Tensor):
     """h [B, S, D] -> (out [B, S, D], aux_loss)."""
     b, s, d = h.shape
-    grouped, _ = _group(h.reshape(b * s, d), DISPATCH_GROUP)
-    dispatch, combine, aux = _route(cfg, p["router"]["w"], grouped.to(torch.float32))
+    grouped, g_tokens = _group(h.reshape(b * s, d), DISPATCH_GROUP)
+    cell, keep, weight, aux = _route_slots(cfg, p["router"]["w"], grouped.to(torch.float32))
     ex = p["experts"]
-    args = (dispatch, combine, grouped, ex["gate"], ex["up"], ex["down"])
+    cap = capacity(cfg, g_tokens)
+    args = (cell, keep, weight, grouped, ex["gate"], ex["up"], ex["down"])
     if isinstance(grouped, DTensor):
         # expert parallelism on each rank's shards: a rank runs its own
         # experts ("model") on its groups (the data axes), and the rows of
         # each token are a sum over the experts' ranks still to reduce
         mesh = active_mesh() or grouped.device_mesh
+        names = axis_names(mesh)
         g_ax, e_ax = _group_axes(grouped), _expert_axis(grouped, ex["gate"].shape[0])
-        route, w = P(g_ax, None, e_ax, None), P(e_ax, None, None)
+        first = 0
+        if e_ax:  # this rank's first expert
+            first = mesh.get_local_rank(names.index("model")) * (
+                ex["gate"].shape[0] // mesh.size(names.index("model")))
+        slots, w = P(g_ax, None, None), P(e_ax, None, None)
         out_pl = tuple(Partial() if e_ax and n == "model" else pl for n, pl in zip(
-            axis_names(mesh), placements(mesh, P(g_ax, None, None))))
-        out = local_shards(_experts_f32, args, (route, route, P(g_ax, None, None), w, w, w),
-                           out_pl, mesh=mesh)
+            names, placements(mesh, P(g_ax, None, None))))
+        out = local_shards(lambda *a: _experts_f32(*a, cap=cap, first=first), args,
+                           (slots, slots, slots, slots, w, w, w), out_pl, mesh=mesh)
     else:
-        out = _experts_f32(*args)
+        out = _experts_f32(*args, cap=cap)
     out = out.reshape(b, s, d)
     if "shared" in p:
         out = out + L.mlp_forward(p["shared"], h, "swiglu")
     return out, aux
 
 
-def _experts_f32(dispatch, combine, grouped, gate, up, down):
-    """Dispatch -> the experts' SwiGLU -> combine, of plain tensors."""
-    xe = torch.einsum("gtec,gtd->gecd", dispatch.to(grouped.dtype), grouped)
+def _slot_mask(cell, vals, n_experts: int, cap: int, first: int, dtype):
+    """The [G, g, E, C] mask of ``_route``'s form over the experts ``first ..
+    first + n_experts - 1`` alone, made in ``dtype``: ``vals`` [G, g, K] at
+    each (token, k)'s slot ``cell``; slots of other experts are left out."""
+    n_g, g_tokens, _ = cell.shape
+    local = cell - first * cap
+    inside = (local >= 0) & (local < n_experts * cap)
+    zeros = torch.zeros((n_g, g_tokens, n_experts * cap), dtype=dtype, device=cell.device)
+    # a token's slots are distinct: the sum only adds the zeros of the
+    # slots left out, sent to slot 0
+    mask = zeros.scatter_add(2, torch.where(inside, local, 0),
+                             torch.where(inside, vals.to(dtype), 0))
+    return mask.reshape(n_g, g_tokens, n_experts, cap)
+
+
+def _experts_f32(cell, keep, weight, grouped, gate, up, down, *, cap: int, first: int = 0):
+    """Dispatch -> the experts' SwiGLU -> combine, of plain tensors: the
+    experts ``first ..`` (``gate``'s length of them), their masks made from
+    ``_route_slots``' slots in ``grouped``'s dtype (the values the float32
+    masks round to) and for these experts alone."""
+    e = gate.shape[0]
+    dispatch = _slot_mask(cell, keep, e, cap, first, grouped.dtype)
+    xe = torch.einsum("gtec,gtd->gecd", dispatch, grouped)
+    del dispatch
     xe = constrain(xe, "experts")
     ge = torch.einsum("gecd,edf->gecf", xe, gate)
     ue = torch.einsum("gecd,edf->gecf", xe, up)
     ye = torch.einsum("gecf,efd->gecd", L.silu(ge) * ue, down)
-    return torch.einsum("gtec,gecd->gtd", combine.to(grouped.dtype), ye)
+    return torch.einsum("gtec,gecd->gtd", _slot_mask(cell, weight, e, cap, first, ye.dtype), ye)
 
 
 # ---------------------------------------------------------------------------

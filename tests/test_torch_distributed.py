@@ -418,6 +418,19 @@ def test_a_failing_rank_fails_the_spawn_and_no_process_is_left(tmp_path):
     assert multiprocessing.active_children() == []
 
 
+def test_sharded_steps_leave_no_tensor_in_a_reference_cycle(tmp_path):
+    """Two reduced OLMo-1B steps through ``shard_train_fn`` on a 1x1 gloo
+    mesh (plain, and 2 microbatches under FSDP): ``gc.collect()`` under
+    ``gc.DEBUG_SAVEALL`` then finds no tensor among the unreachable
+    objects, so a step's memory is freed when it returns."""
+    spawn(R.unreachable_after_steps, 1, str(tmp_path / "gc.json"), workdir=tmp_path,
+          timeout=SPAWN_TIMEOUT)
+    got = json.loads((tmp_path / "gc.json").read_text())
+    print(got)
+    assert [g["case"] for g in got] == [list(c) for c in R.GC_STEPS]
+    assert all(g["tensors"] == 0 for g in got), got
+
+
 # ---------------------------------------------------------------------------
 # sharded checkpoints
 # ---------------------------------------------------------------------------

@@ -574,6 +574,58 @@ def fail_on(rank: int, world: int, bad: int) -> None:
     dist.barrier()
 
 
+#: the cycle guard's sharded steps on a 1x1 mesh: (batch, seq, microbatches,
+#: fsdp), two steps each
+GC_STEPS = [(2, 16, 1, False), (4, 32, 2, True)]
+
+
+def unreachable_after_steps(rank: int, world: int, out: str) -> None:
+    """Reduced OLMo-1B's sharded step twice through ``shard_train_fn`` on
+    a 1x1 mesh (a gloo world of one) for each of ``GC_STEPS``, then one
+    ``gc.collect()`` under ``gc.DEBUG_SAVEALL``: the unreachable objects,
+    and the tensors (plain or DTensor) among them, written to ``out`` as
+    JSON.  Nothing a step made may be left in a reference cycle."""
+    import gc
+    import json
+
+    from repro_torch.configs import ShapeCell, get_config, reduced
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import make_train_step, shard_train_fn
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.activations import activation_policy
+
+    cfg = reduced(get_config("olmo-1b"))
+    api = build(cfg)
+    mesh = make_host_mesh(device="cpu")
+    res = []
+    for batch, seq, microbatches, fsdp in GC_STEPS:
+        cell = ShapeCell("train", seq, batch, "train")
+        dcfg = DataConfig(vocab=cfg.vocab, global_batch=batch, seq_len=seq)
+        batches = [{k: torch.from_numpy(v) for k, v in make_batch(cfg, cell, dcfg, s).items()}
+                   for s in range(2)]
+        params = api.init_params(0, device="cpu")
+        opt = adamw.init(params)
+        step = shard_train_fn(make_train_step(api, microbatches=microbatches, remat=True),
+                              mesh, params, opt, batches[0], fsdp=fsdp)
+        gc.collect()  # what building the step left
+        for b in batches:
+            with activation_policy(mesh):
+                params, opt, _ = step(params, opt, b)
+        gc.set_debug(gc.DEBUG_SAVEALL)
+        try:
+            gc.collect()
+            found = list(gc.garbage)
+        finally:
+            gc.set_debug(0)
+            gc.garbage.clear()
+        res.append({"case": [batch, seq, microbatches, fsdp], "unreachable": len(found),
+                    "tensors": sum(isinstance(o, torch.Tensor) for o in found)})
+        del found
+    Path(out).write_text(json.dumps(res))
+
+
 def _sweep(rank: int, world: int, archs: list, sequence_parallel: bool,
            shape=(2, 2)) -> None:
     from repro_torch.launch.mesh import make_host_mesh

@@ -11,8 +11,10 @@ seconds on a CPU, so GSPMD's figure is always at hand to hold the port's
   PYTHONPATH=src python tests/xla_memory.py --arch olmo-1b mamba2-370m --mesh 16x16
 
 prints one line ``XLA_MEMORY <json>``: ``{"<arch>|<shape>|<mesh>": {"temp",
-"arg", "out", "compile_s"}}`` (bytes a rank), or ``{"error": ...}`` for a
-cell that does not compile.
+"arg", "out", "compile_s", "flops", "collective_bytes",
+"collective_counts"}}`` (bytes a rank; flops and collectives as the
+reference's ``deploy.hlo_analysis`` reads the partitioned HLO), or
+``{"error": ...}`` for a cell that does not compile.
 """
 
 import argparse
@@ -37,6 +39,7 @@ def main(argv=None) -> int:
     os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={n}"
     import jax
 
+    from repro.deploy.hlo_analysis import analyze_hlo
     from repro.runtime.activations import activation_policy
 
     mesh = jax.make_mesh(shape, ("data", "model"), devices=jax.devices()[:n],
@@ -51,10 +54,13 @@ def main(argv=None) -> int:
                 with mesh, activation_policy(mesh, sequence_parallel=(meta["kind"] == "train")):
                     compiled = jax.jit(fn, in_shardings=shardings).lower(*specs).compile()
                 mem = compiled.memory_analysis()
+                hlo = analyze_hlo(compiled.as_text())
                 res[key] = {"temp": int(mem.temp_size_in_bytes),
                             "arg": int(mem.argument_size_in_bytes),
                             "out": int(mem.output_size_in_bytes),
-                            "compile_s": round(time.time() - t0, 2)}
+                            "compile_s": round(time.time() - t0, 2), "flops": hlo["flops"],
+                            "collective_bytes": hlo["collective_bytes"],
+                            "collective_counts": hlo["collective_counts"]}
             except Exception:  # noqa: BLE001 - reported in the line
                 res[key] = {"error": traceback.format_exc()[-2000:]}
             print(f"{key}: {res[key]}", file=sys.stderr, flush=True)
