@@ -1,0 +1,7 @@
+"""ms of a decode dispatch's enqueue: the session call, entry to return."""
+
+from bench.harness import program_counters
+
+
+def read(run):
+    return program_counters.enqueue_ms(run, "decode")

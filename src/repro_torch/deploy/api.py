@@ -52,6 +52,7 @@ from repro_torch.core.heterogeneous import (
     as_backend,
     backend_granule,
 )
+from repro_torch.deploy import spans
 from repro_torch.deploy.lowering import (  # noqa: F401 (re-exports)
     UnsupportedFamilyError,
     is_dense_decoder,
@@ -863,37 +864,38 @@ class InferenceSession:
         self._require("decoder", "prefill_chunks")
         self._affine("prefill_chunks")
         self._require_paged("prefill_chunks")
-        if not chunks:
-            raise ValueError("prefill_chunks needs at least one slot chunk")
-        s = self._pair.seq_len
-        self._zero_pos()
-        checked: dict[int, tuple] = {}
-        for slot, (tokens, start) in sorted(chunks.items()):
-            slot, start = int(slot), int(start)
-            self._check_slot(slot)
-            tokens = self._check_tokens(tokens, 1)
-            self._check_chunk(slot, start)
-            checked[slot] = (tokens, start)
-        # host state changes after all validation; release-then-grow is
-        # idempotent per slot, so a pool failure midway can be retried
-        for slot, (_, start) in checked.items():
-            if start == 0:
-                self._release_blocks(slot)
-        for slot, (_, start) in checked.items():
-            self._grow_table(slot, blocks_for_rows(start + s, self._pair.kv_block_size))
-        for slot, (_, start) in checked.items():
-            # a chunk overlapping an attached shared prefix re-writes
-            # identical rows: still a write, so still copied first
-            self._cow_range(slot, start, start + s)
-        for slot, (_, start) in checked.items():
-            self._note_writes(slot, start, start + s)
-        tokens = torch.zeros((self.batch_size, s), dtype=torch.int32, device=self.device)
-        starts = np.zeros((self.batch_size,), np.int32)
-        tables = np.full_like(self._tables, SCRATCH_BLOCK)
-        for slot, (toks, start) in checked.items():
-            tokens[slot] = toks[0]
-            starts[slot] = start
-            tables[slot] = self._tables[slot]
+        with spans.annotate("session/prepare"):
+            if not chunks:
+                raise ValueError("prefill_chunks needs at least one slot chunk")
+            s = self._pair.seq_len
+            self._zero_pos()
+            checked: dict[int, tuple] = {}
+            for slot, (tokens, start) in sorted(chunks.items()):
+                slot, start = int(slot), int(start)
+                self._check_slot(slot)
+                tokens = self._check_tokens(tokens, 1)
+                self._check_chunk(slot, start)
+                checked[slot] = (tokens, start)
+            # host state changes after all validation; release-then-grow is
+            # idempotent per slot, so a pool failure midway can be retried
+            for slot, (_, start) in checked.items():
+                if start == 0:
+                    self._release_blocks(slot)
+            for slot, (_, start) in checked.items():
+                self._grow_table(slot, blocks_for_rows(start + s, self._pair.kv_block_size))
+            for slot, (_, start) in checked.items():
+                # a chunk overlapping an attached shared prefix re-writes
+                # identical rows: still a write, so still copied first
+                self._cow_range(slot, start, start + s)
+            for slot, (_, start) in checked.items():
+                self._note_writes(slot, start, start + s)
+            tokens = torch.zeros((self.batch_size, s), dtype=torch.int32, device=self.device)
+            starts = np.zeros((self.batch_size,), np.int32)
+            tables = np.full_like(self._tables, SCRATCH_BLOCK)
+            for slot, (toks, start) in checked.items():
+                tokens[slot] = toks[0]
+                starts[slot] = start
+                tables[slot] = self._tables[slot]
         logits = self._chunk(tokens, starts, tables)
         for slot, (_, start) in checked.items():
             self._pos[slot] = start + s
@@ -1048,52 +1050,54 @@ class InferenceSession:
         """
         self._require("decoder", "decode")
         self._affine("decode")
-        paged = self._pair.paged
-        if (self._pos is None) if paged else (self._kv is None):
-            raise RuntimeError("decode before prefill: no KV state in the session")
-        if active is not None and not paged:
-            raise ValueError("active lane masks are a paged-session feature (dense "
-                             "dispatches park free lanes at pos 0 instead)")
-        tokens = torch.as_tensor(tokens).to(device=self.device, dtype=torch.int32)
-        if tokens.dim() == 1:
-            tokens = tokens[:, None]
-        if tuple(tokens.shape) != (self.batch_size, 1):
-            raise ValueError(
-                f"decode tokens must be [{self.batch_size}, 1], got {tuple(tokens.shape)}")
-        pos = self._pos if pos is None else np.asarray(
-            pos.cpu() if isinstance(pos, torch.Tensor) else pos, np.int32)
-        if pos.shape != (self.batch_size,):
-            raise ValueError(
-                f"pos must be a per-request vector [{self.batch_size}], got {pos.shape}")
-        act = np.ones((self.batch_size,), bool) if active is None else np.asarray(
-            active.cpu() if isinstance(active, torch.Tensor) else active, bool).reshape(-1)
-        if act.shape != (self.batch_size,):
-            raise ValueError(
-                f"active must be a per-request mask [{self.batch_size}], got {act.shape}")
-        # a write past the region would raise inside the cache write (the
-        # reference's scatter would clamp it onto the last row): bound it
-        # first, naming the slots, so nothing is written
-        full = [b for b in range(self.batch_size)
-                if act[b] and int(pos[b]) >= self._pair.max_len]
-        if full:
-            raise KVCapacityError(full, [int(pos[b]) for b in full], self._pair.max_len)
+        with spans.annotate("session/prepare"):
+            paged = self._pair.paged
+            if (self._pos is None) if paged else (self._kv is None):
+                raise RuntimeError("decode before prefill: no KV state in the session")
+            if active is not None and not paged:
+                raise ValueError("active lane masks are a paged-session feature (dense "
+                                 "dispatches park free lanes at pos 0 instead)")
+            tokens = torch.as_tensor(tokens).to(device=self.device, dtype=torch.int32)
+            if tokens.dim() == 1:
+                tokens = tokens[:, None]
+            if tuple(tokens.shape) != (self.batch_size, 1):
+                raise ValueError(
+                    f"decode tokens must be [{self.batch_size}, 1], got {tuple(tokens.shape)}")
+            pos = self._pos if pos is None else np.asarray(
+                pos.cpu() if isinstance(pos, torch.Tensor) else pos, np.int32)
+            if pos.shape != (self.batch_size,):
+                raise ValueError(
+                    f"pos must be a per-request vector [{self.batch_size}], got {pos.shape}")
+            act = np.ones((self.batch_size,), bool) if active is None else np.asarray(
+                active.cpu() if isinstance(active, torch.Tensor) else active, bool).reshape(-1)
+            if act.shape != (self.batch_size,):
+                raise ValueError(
+                    f"active must be a per-request mask [{self.batch_size}], got {act.shape}")
+            # a write past the region would raise inside the cache write (the
+            # reference's scatter would clamp it onto the last row): bound it
+            # first, naming the slots, so nothing is written
+            full = [b for b in range(self.batch_size)
+                    if act[b] and int(pos[b]) >= self._pair.max_len]
+            if full:
+                raise KVCapacityError(full, [int(pos[b]) for b in full], self._pair.max_len)
+            if paged:
+                # a lane crossing into a new logical block allocates it first:
+                # pool exhaustion raises before the pool changes
+                bs = self._pair.kv_block_size
+                for b in range(self.batch_size):
+                    if act[b] and int(pos[b]) % bs == 0:
+                        self._grow_table(b, int(pos[b]) // bs + 1)
+                for b in range(self.batch_size):
+                    if act[b]:
+                        self._cow_range(b, int(pos[b]), int(pos[b]) + 1)
+                        self._note_writes(b, int(pos[b]), int(pos[b]) + 1)
+                tables = torch.from_numpy(self._tables.copy()).to(self.device)
         if paged:
             from repro_torch.deploy.executor import execute_decode_paged
 
-            # a lane crossing into a new logical block allocates it first:
-            # pool exhaustion raises before the pool changes
-            bs = self._pair.kv_block_size
-            for b in range(self.batch_size):
-                if act[b] and int(pos[b]) % bs == 0:
-                    self._grow_table(b, int(pos[b]) // bs + 1)
-            for b in range(self.batch_size):
-                if act[b]:
-                    self._cow_range(b, int(pos[b]), int(pos[b]) + 1)
-                    self._note_writes(b, int(pos[b]), int(pos[b]) + 1)
             logits, self._pool = execute_decode_paged(
                 self._pair, self.weights, self._pool, tokens, torch.from_numpy(pos.copy()),
-                torch.from_numpy(self._tables.copy()).to(self.device),
-                torch.from_numpy(act), backend=self.backend, table=self.table)
+                tables, torch.from_numpy(act), backend=self.backend, table=self.table)
         else:
             from repro_torch.deploy.executor import execute_decode
 

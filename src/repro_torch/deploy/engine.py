@@ -89,6 +89,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.deploy import spans
 from repro_torch.deploy.api import CompiledModel, InferenceSession, KVCapacityError
 from repro_torch.deploy.paging import blocks_for_rows, chunk_starts
 from repro_torch.deploy.sanitize import make_lock
@@ -186,8 +187,9 @@ class RequestHandle:
     PriorityDeadline`; ignored by FIFO): ``priority`` (lower = more
     urgent), ``ttft_slo_ms`` (time-to-first-token target) and
     ``deadline_ms`` (completion budget — past it the request is
-    preemptible).  ``arrival_t`` / ``first_token_t`` / ``finish_t`` are
-    engine-clock timestamps; ``preemptions`` counts how many times this
+    preemptible).  ``arrival_t`` / ``admit_t`` (first admission into a
+    slot) / ``first_token_t`` / ``finish_t`` are engine-clock timestamps;
+    ``preemptions`` counts how many times this
     request was evicted-to-queue and re-admitted.
     """
 
@@ -215,6 +217,7 @@ class RequestHandle:
                            else self.arrival_t + float(deadline_ms) / 1e3)
         self.admit_deadline_t = effective_deadline(
             self.arrival_t, ttft_slo_ms, deadline_ms)
+        self.admit_t: float | None = None
         self.first_token_t: float | None = None
         self._last_token_t: float | None = None
         self.finish_t: float | None = None
@@ -283,8 +286,18 @@ class EngineStats:
     queue_depth: int = 0
     peak_queue_depth: int = 0
     slots_busy: int = 0
+    # a dispatch's host clock, from the session call to the end of its one
+    # logits fetch: the enqueue (the session call, which returns once the
+    # kernels are queued) plus the fetch (which waits for the device)
     prefill_time_s: float = 0.0
     decode_time_s: float = 0.0
+    prefill_enqueue_s: float = 0.0
+    prefill_fetch_s: float = 0.0
+    decode_enqueue_s: float = 0.0
+    decode_fetch_s: float = 0.0
+    # lanes named in the successful chunk dispatches, summed (each dispatch
+    # runs all max_batch lanes; the others are parked on the scratch block)
+    prefill_lanes: int = 0
     # prefix cache (zero everywhere unless compile(prefix_cache=True)):
     # lookups/hits count admissions, hit_blocks counts KV blocks served
     # from the cache instead of re-prefilled, full_prefix_hits are
@@ -315,6 +328,12 @@ class EngineStats:
     # between consecutive generated tokens of one request
     ttft_s: list = dataclasses.field(default_factory=list)
     tpot_s: list = dataclasses.field(default_factory=list)
+    # submit -> first admission into a slot, one sample a request
+    queue_wait_s: list = dataclasses.field(default_factory=list)
+    # the step's host work outside the dispatches, by phase (the engine's
+    # ``engine/*`` spans, each its self time) and its calls
+    host_s: dict = dataclasses.field(default_factory=dict)
+    host_calls: dict = dataclasses.field(default_factory=dict)
 
     def snapshot(self) -> "EngineStats":
         """One consistent copy: scalar counters plus fresh copies of the
@@ -325,8 +344,17 @@ class EngineStats:
         out.step_times_s = list(self.step_times_s)
         out.ttft_s = list(self.ttft_s)
         out.tpot_s = list(self.tpot_s)
+        out.queue_wait_s = list(self.queue_wait_s)
+        out.host_s = dict(self.host_s)
+        out.host_calls = dict(self.host_calls)
         out._slo_outcomes = list(self._slo_outcomes)
         return out
+
+    def add_phases(self, phases: spans.Phases) -> None:
+        """Fold one step's phases into ``host_s`` / ``host_calls``."""
+        for name, s in phases.seconds.items():
+            self.host_s[name] = self.host_s.get(name, 0.0) + s
+            self.host_calls[name] = self.host_calls.get(name, 0) + phases.calls[name]
 
     def step_latency_s(self, pct: float) -> float:
         """Nearest-rank percentile of recorded scheduler-step wall times."""
@@ -345,6 +373,20 @@ class EngineStats:
     def tpot(self, pct: float) -> float:
         """Nearest-rank percentile of observed per-output-token gaps."""
         return _nearest_rank(self.tpot_s, pct)
+
+    def queue_wait(self, pct: float) -> float:
+        """Nearest-rank percentile of the queue-wait samples (seconds)."""
+        return _nearest_rank(self.queue_wait_s, pct)
+
+    def host_per_step(self) -> dict:
+        """Per engine step, by phase: ``{"ms": ..., "calls": ...}``."""
+        n = max(1, len(self.step_times_s))
+        return {k: {"ms": 1e3 * s / n, "calls": self.host_calls[k] / n}
+                for k, s in sorted(self.host_s.items())}
+
+    def chunk_lane_use(self) -> float:
+        """Fraction of a chunk dispatch's lanes that carried a chunk."""
+        return self.prefill_lanes / max(1, self.prefill_dispatches * self.max_batch)
 
     def goodput_under_slo(self) -> float:
         """Fraction of *finished* SLO-carrying requests whose TTFT met
@@ -563,6 +605,8 @@ class Engine:
         # like dense max_len)
         self._pledged: dict[int, int] = {}
         self._next_rid = 0
+        # the current step's phases (loop thread only; a fresh one a step)
+        self._phases = spans.Phases()
 
     # -- submission --------------------------------------------------------
 
@@ -724,15 +768,51 @@ class Engine:
         token in a single batched decode dispatch.  Returns False when
         the engine is idle."""
         t_step = time.perf_counter()
+        self._phases = phases = spans.Phases()
         try:
             return self._step()
         finally:
             with self._lock:  # stats mutate under the lock: see snapshot()
                 self.stats.step_times_s.append(time.perf_counter() - t_step)
+                self.stats.add_phases(phases)
+
+    def _finish_in_step(self, handle: RequestHandle, reason: str) -> None:
+        """:meth:`_finish` from the step loop, timed as ``engine/finish``."""
+        with self._phases.span("engine/finish", (handle.rid,)):
+            self._finish(handle, reason)
+
+    def _dispatch(self, kind: str, rids: list, call) -> np.ndarray:
+        """One ``kind`` dispatch (``"prefill"`` / ``"decode"``): ``call()``
+        enqueues it, then ONE device->host fetch of every lane's last-token
+        logits row waits for the device (per-lane ``logits[b, -1]`` pulls
+        would sync once per lane), so the dispatch's host clock ends with
+        the fetch; it is kept as the enqueue and the fetch.  A dispatch the
+        session refuses with :class:`KVCapacityError` (before any launch)
+        still counts its enqueue: dropping it would make capacity-churny
+        traces look faster than the wall clock."""
+        try:
+            with self._phases.span(f"engine/{kind}_dispatch", rids, phase=False) as enq:
+                logits = call()
+        except KVCapacityError:
+            self._add_dispatch(kind, enq.seconds, 0.0, 0)
+            raise
+        with self._phases.span(f"engine/{kind}_fetch", phase=False) as fetch:
+            rows = _host_rows(logits)
+        self._add_dispatch(kind, enq.seconds, fetch.seconds, 1)
+        return rows
+
+    def _add_dispatch(self, kind: str, enqueue_s: float, fetch_s: float, n: int) -> None:
+        with self._lock:
+            for field, v in (("time_s", enqueue_s + fetch_s), ("enqueue_s", enqueue_s),
+                             ("fetch_s", fetch_s), ("dispatches", n)):
+                name = f"{kind}_{field}"
+                setattr(self.stats, name, getattr(self.stats, name) + v)
 
     def _step(self) -> bool:
-        worked = self._preempt()
-        admitted = self._admit()
+        with self._phases.span("engine/preempt"):
+            worked = self._preempt()
+        with self._phases.span("engine/admit"):
+            admitted = self._admit()
         worked = bool(admitted) or worked
         worked = self._advance_chunks() or worked
 
@@ -756,35 +836,23 @@ class Engine:
             # advance are numpy, so uploading a device tensor here would
             # just be pulled straight back (one wasted round-trip/token)
             pos = np.asarray(self._pos, np.int32)
-            t0 = time.perf_counter()
+            mask = None
+            if self.paged:
+                mask = np.zeros((self.max_batch,), bool)
+                mask[active] = True
             try:
-                if self.paged:
-                    mask = np.zeros((self.max_batch,), bool)
-                    mask[active] = True
-                    logits = self.session.decode(tokens, pos, active=mask)
-                else:
-                    logits = self.session.decode(tokens, pos)
+                step_rows = self._dispatch(
+                    "decode", [self._slots[b].rid for b in active],
+                    lambda: self.session.decode(tokens, pos, active=mask))
             except KVCapacityError as e:
-                # the failed dispatch's wall time still counts: dropping
-                # it would make long capacity-churny traces look faster
-                # than the wall clock
-                with self._lock:
-                    self.stats.decode_time_s += time.perf_counter() - t0
                 if self._reclaim_parked(e, len(e.slots)):
                     continue  # parked prefix blocks funded a retry
                 for b in e.slots:
                     if self._slots[b] is not None:
-                        self._finish(self._slots[b], "kv_capacity")
+                        self._finish_in_step(self._slots[b], "kv_capacity")
                 active = decode_lanes()
                 continue
-            # ONE device->host fetch for the whole step (it also waits for
-            # the dispatch, so the timer below covers the device's work):
-            # per-slot ``logits[b, -1]`` pulls would sync once per
-            # resident request per token
-            step_rows = _host_rows(logits)
             with self._lock:
-                self.stats.decode_time_s += time.perf_counter() - t0
-                self.stats.decode_dispatches += 1
                 self.stats.slot_steps_busy += len(active)
             for b in active:
                 if self._slots[b] is None:
@@ -893,7 +961,7 @@ class Engine:
                         # can ever hold — finish it (kv_capacity) instead
                         # of blocking the queue forever
                         self.scheduler.remove(cand)
-                        self._finish(cand, "kv_capacity")
+                        self._finish_in_step(cand, "kv_capacity")
                         continue
                     match, starts, need = self._plan_admission(prefix)
                     if (self.prefix_index is not None
@@ -917,13 +985,17 @@ class Engine:
                         # only the index references are capacity in waiting
                         freed = 0
                         if self.prefix_index is not None:
-                            freed = self.prefix_index.reclaim(
-                                short,
-                                protect=match.blocks if match else ())
+                            with self._phases.span("engine/prefix_reclaim"):
+                                freed = self.prefix_index.reclaim(
+                                    short,
+                                    protect=match.blocks if match else ())
                             self.stats.prefix_reclaimed_blocks += freed
                         if freed < short:
                             break
                 handle = self.scheduler.pop(now)
+                if handle.admit_t is None:
+                    handle.admit_t = now
+                    self.stats.queue_wait_s.append(now - handle.arrival_t)
             handle.slot = free
             handle.status = RequestStatus.PREFILLING
             self._slots[free] = handle
@@ -958,12 +1030,9 @@ class Engine:
                     self._pos[free] = 0
             else:
                 head = torch.tensor(prefix[: self.seq_len], dtype=torch.int32)[None]
-                t0 = time.perf_counter()
-                logits = self.session.prefill_slot(free, head)
-                row = _host_rows(logits)[0]  # the one fetch of this dispatch
+                row = self._dispatch("prefill", [handle.rid],
+                                     lambda: self.session.prefill_slot(free, head))[0]
                 with self._lock:
-                    self.stats.prefill_time_s += time.perf_counter() - t0
-                    self.stats.prefill_dispatches += 1
                     self.stats.prompt_tokens_prefilled += self.seq_len
                 self._pos[free] = self.seq_len
                 self._consume_logits(free, row)
@@ -988,7 +1057,8 @@ class Engine:
         total = blocks_for_rows(T, bsz)
         if self.prefix_index is None:
             return None, chunk_starts(T, S), total
-        match = self.prefix_index.match(prefix)
+        with self._phases.span("engine/prefix_match"):
+            match = self.prefix_index.match(prefix)
         if match.full:
             return match, [], 0
         start0 = min(match.rows, T - S)
@@ -1031,7 +1101,8 @@ class Engine:
         nothing is reclaimable — caller falls through to eviction)."""
         if self.prefix_index is None or e.reason != "pool":
             return 0
-        freed = self.prefix_index.reclaim(max(1, want))
+        with self._phases.span("engine/prefix_reclaim"):
+            freed = self.prefix_index.reclaim(max(1, want))
         with self._lock:
             self.stats.prefix_reclaimed_blocks += freed
         return freed
@@ -1078,25 +1149,27 @@ class Engine:
         while True:
             pending: dict[int, tuple] = {}
             prev_rows: dict[int, int] = {}
-            for b in sorted(self._chunks):
-                if self._slots[b] is None:  # cancelled mid-chunking
-                    self._chunks.pop(b, None)
-                    continue
-                start = self._chunks[b][0]
-                # tokens this chunk NEWLY covers: the pinned tail chunk
-                # overlaps the previous one, and crediting seq_len per
-                # dispatch would inflate prompt throughput for
-                # non-multiple prompt lengths
-                prev_rows[b] = 0 if start == 0 else int(self.session.pos[b])
-                chunk = torch.tensor(
-                    self._slots[b].prefix()[start : start + self.seq_len],
-                    dtype=torch.int32)[None]
-                pending[b] = (chunk, start)
+            with self._phases.span("engine/chunk_build"):
+                for b in sorted(self._chunks):
+                    if self._slots[b] is None:  # cancelled mid-chunking
+                        self._chunks.pop(b, None)
+                        continue
+                    start = self._chunks[b][0]
+                    # tokens this chunk NEWLY covers: the pinned tail chunk
+                    # overlaps the previous one, and crediting seq_len per
+                    # dispatch would inflate prompt throughput for
+                    # non-multiple prompt lengths
+                    prev_rows[b] = 0 if start == 0 else int(self.session.pos[b])
+                    chunk = torch.tensor(
+                        self._slots[b].prefix()[start : start + self.seq_len],
+                        dtype=torch.int32)[None]
+                    pending[b] = (chunk, start)
             if not pending:
                 return progressed
-            t0 = time.perf_counter()
             try:
-                logits = self.session.prefill_chunks(pending)
+                final_rows = self._dispatch(
+                    "prefill", [self._slots[b].rid for b in pending],
+                    lambda: self.session.prefill_chunks(pending))
             except KVCapacityError as e:
                 # requester-pays, like decode capacity: the pool cannot
                 # hold the named slots' prompts right now, so those
@@ -1104,22 +1177,16 @@ class Engine:
                 # back to the pool, and the survivors retry within the
                 # same step — the host-side checks raise BEFORE the
                 # dispatch, so no device state needs unwinding
-                with self._lock:
-                    self.stats.prefill_time_s += time.perf_counter() - t0
                 if self._reclaim_parked(e, len(e.slots)):
                     continue  # parked prefix blocks funded a retry
                 for b in e.slots:
                     if self._slots[b] is not None:
-                        self._finish(self._slots[b], "kv_capacity")
+                        self._finish_in_step(self._slots[b], "kv_capacity")
                 progressed = True  # the finishes ARE scheduler progress
                 continue
-            # ONE device->host fetch of every lane's last-token row; it ends
-            # the dispatch's timer and serves each slot that finishes
-            # chunking this step
-            final_rows = _host_rows(logits)
+            # the one fetch serves each slot that finishes chunking this step
             with self._lock:
-                self.stats.prefill_time_s += time.perf_counter() - t0
-                self.stats.prefill_dispatches += 1
+                self.stats.prefill_lanes += len(pending)
             for b in pending:
                 if self._slots[b] is None:
                     continue  # evicted mid-loop by a streaming callback
@@ -1137,9 +1204,10 @@ class Engine:
                     # below can finish the request and free its chain:
                     # the trie pins its own references, so the blocks
                     # (and the cached logits row) outlive the slot
-                    self.prefix_index.insert(
-                        self._slots[b].prefix(),
-                        self.session.block_chain(b), final_rows[b])
+                    with self._phases.span("engine/prefix_insert", (self._slots[b].rid,)):
+                        self.prefix_index.insert(
+                            self._slots[b].prefix(),
+                            self.session.block_chain(b), final_rows[b])
                 self._consume_logits(b, final_rows[b])
             return True
 
@@ -1154,42 +1222,43 @@ class Engine:
         same ``len(tokens)`` fold-in index — bit-exact vs an
         uninterrupted run."""
         handle = self._slots[b]
-        depth = self._pos[b]
-        forced_len = len(handle.prompt) + handle.resumed
-        if depth < forced_len:
-            # teacher-force the prefix tail through the batched decode path
-            if depth < len(handle.prompt):
-                self._next_input[b] = handle.prompt[depth]
-            else:
-                self._next_input[b] = handle.tokens[depth - len(handle.prompt)]
-            with self._lock:
-                self.stats.prompt_tokens_forced += 1
-            return
-        tok = int(self.sampling(logits_row, handle.rid, len(handle.tokens)))
-        handle.status = RequestStatus.DECODING
-        handle.tokens.append(tok)
-        now = self.clock()
-        with self._lock:
-            self.stats.tokens_generated += 1
-            if handle.first_token_t is None:
-                handle.first_token_t = now
-                self.stats.ttft_s.append(handle.ttft_s)
-                if handle.ttft_slo_ms is not None:
-                    self.stats._slo_outcomes.append(
-                        handle.ttft_s <= handle.ttft_slo_ms / 1e3)
-            else:
-                self.stats.tpot_s.append(now - handle._last_token_t)
-            handle._last_token_t = now
-        if handle.on_token is not None:
-            handle.on_token(tok)
-            if handle.done:  # the callback cancelled this very request
+        with self._phases.span("engine/sample", (handle.rid,)):
+            depth = self._pos[b]
+            forced_len = len(handle.prompt) + handle.resumed
+            if depth < forced_len:
+                # teacher-force the prefix tail through the batched decode path
+                if depth < len(handle.prompt):
+                    self._next_input[b] = handle.prompt[depth]
+                else:
+                    self._next_input[b] = handle.tokens[depth - len(handle.prompt)]
+                with self._lock:
+                    self.stats.prompt_tokens_forced += 1
                 return
-        if handle.eos_id is not None and tok == handle.eos_id:
-            self._finish(handle, "eos")
-        elif len(handle.tokens) >= handle.max_new_tokens:
-            self._finish(handle, "length")
-        else:
-            self._next_input[b] = tok
+            tok = int(self.sampling(logits_row, handle.rid, len(handle.tokens)))
+            handle.status = RequestStatus.DECODING
+            handle.tokens.append(tok)
+            now = self.clock()
+            with self._lock:
+                self.stats.tokens_generated += 1
+                if handle.first_token_t is None:
+                    handle.first_token_t = now
+                    self.stats.ttft_s.append(handle.ttft_s)
+                    if handle.ttft_slo_ms is not None:
+                        self.stats._slo_outcomes.append(
+                            handle.ttft_s <= handle.ttft_slo_ms / 1e3)
+                else:
+                    self.stats.tpot_s.append(now - handle._last_token_t)
+                handle._last_token_t = now
+            if handle.on_token is not None:
+                handle.on_token(tok)
+                if handle.done:  # the callback cancelled this very request
+                    return
+            if handle.eos_id is not None and tok == handle.eos_id:
+                self._finish_in_step(handle, "eos")
+            elif len(handle.tokens) >= handle.max_new_tokens:
+                self._finish_in_step(handle, "length")
+            else:
+                self._next_input[b] = tok
 
     def _finish(self, handle: RequestHandle, reason: str,
                 status: RequestStatus = RequestStatus.DONE) -> None:

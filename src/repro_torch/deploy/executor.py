@@ -19,6 +19,10 @@ body's closures run in order inside one call.
 Unlike the reference, ``execute_decode`` and the paged executors write
 the cache or pool they are given in place (the plan aliases each output
 to its input): they return the same tensors.
+
+While the profiler switch of :mod:`repro_torch.deploy.spans` is on,
+``execute`` marks each plan node's host call as ``executor/<node kind>``
+(a fused region as ``executor/region``, its body nodes inside it).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from repro_torch.core.heterogeneous import (
     backend_granule,
 )
 from repro_torch.core.quant_linear import ACT_GELU, ACT_IDENTITY, ACT_RELU
+from repro_torch.deploy import spans
 from repro_torch.deploy.patterns import opdesc_from_attrs
 from repro_torch.deploy.plan import DecoderPlanPair, DeploymentPlan, PlanNode
 from repro_torch.quant.qparams import imatmul
@@ -308,6 +313,7 @@ def _compile_region(node: PlanNode, table, backend) -> Callable:
             local[out] = fn(local)
         return tuple(local[t] for t in out_names)
 
+    run.body = body  # for _run_marked, which marks each body node
     return run
 
 
@@ -366,13 +372,33 @@ def execute(
     env = dict(weights)
     for name in plan.inputs:
         env[name] = batch[name]
-    for node, run in program:
-        if node.fused:
-            env.update(zip(node.outputs, run(env)))
-        else:
-            env[node.outputs[0]] = run(env)
+    if spans.enabled():
+        _run_marked(program, env)
+    else:
+        for node, run in program:
+            if node.fused:
+                env.update(zip(node.outputs, run(env)))
+            else:
+                env[node.outputs[0]] = run(env)
     outs = [env[name] for name in plan.outputs]
     return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+def _run_marked(program: tuple, env: dict) -> None:
+    """``execute``'s walk with one ``executor/<kind>`` profiler span a plan
+    node (args: the node's name): a fused region is ``executor/region``,
+    its body nodes' spans inside it."""
+    for node, run in program:
+        if not node.fused:
+            with spans.annotate(f"executor/{node.kind}", node.name):
+                env[node.outputs[0]] = run(env)
+            continue
+        with spans.annotate("executor/region", node.name):
+            local = {t: env[t] for t in node.inputs}
+            for b, (out, fn) in zip(node.body, run.body):
+                with spans.annotate(f"executor/{b.kind}", b.name):
+                    local[out] = fn(local)
+            env.update((t, local[t]) for t in node.outputs)
 
 
 def _weight_binder(weights: dict):

@@ -77,6 +77,18 @@ def _stats_payload(engine: AsyncEngine) -> dict:
         "goodput_under_slo": s.goodput_under_slo(),
         "step_p50_ms": s.step_latency_p50() * 1e3,
         "step_p99_ms": s.step_latency_p99() * 1e3,
+        # where a step's time goes: queue wait (submit -> first admission),
+        # the engine's host phases per step, and each dispatch split into
+        # its enqueue (the session call) and its fetch (the wait for the
+        # device); the share of a chunk dispatch's lanes given a chunk
+        "queue_wait_p50_ms": s.queue_wait(50) * 1e3,
+        "queue_wait_p99_ms": s.queue_wait(99) * 1e3,
+        "engine_host_per_step": s.host_per_step(),
+        "prefill_enqueue_ms": 1e3 * s.prefill_enqueue_s / max(1, s.prefill_dispatches),
+        "prefill_fetch_ms": 1e3 * s.prefill_fetch_s / max(1, s.prefill_dispatches),
+        "decode_enqueue_ms": 1e3 * s.decode_enqueue_s / max(1, s.decode_dispatches),
+        "decode_fetch_ms": 1e3 * s.decode_fetch_s / max(1, s.decode_dispatches),
+        "chunk_lane_use": s.chunk_lane_use() if eng.paged else None,
         # prefix cache / copy-on-write KV (all zero unless the artifact
         # was compiled with prefix_cache=True)
         "prefix_hit_blocks": s.prefix_hit_blocks,

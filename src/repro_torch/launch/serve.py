@@ -38,9 +38,12 @@ lowering does not support exits with ``cannot serve <name>: ...``, as in
 the JAX package.  ``--device cpu`` runs the plain PyTorch versions on the CPU.
 ``--profile`` traces, after the timed run, one batch (encoder) or one
 engine step that holds a prefill and one step of pure decode (decoder),
-and prints the device time by kernel (``torch.profiler``: the top
-kernels, then the port's own kernels wherever they rank) and the
-device's busy share of the same work untraced.
+with the program's spans on (:mod:`repro_torch.deploy.spans`), and
+prints for each traced call the device time by kernel (``torch.profiler``:
+the top kernels, then the port's own kernels wherever they rank), the
+device's busy and idle share of the traced window, the device time and
+the idle time by the innermost program span (``engine/…``,
+``session/…``, ``executor/<node kind>``) and the host's self time by span.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.configs import get_config, reduced
-from repro_torch.deploy import api
+from repro_torch.deploy import api, spans
 from repro_torch.deploy.paging import blocks_for_rows
 from repro_torch.launch.cli import (
     add_engine_args,
@@ -86,33 +89,128 @@ def make_requests(cfg, plan, batch_size: int, steps: int, seed: int) -> list[tor
                           dtype=torch.int8) for _ in range(steps)]
 
 
+#: the profiled call's own span: the traced window
+WINDOW = "serve.window"
+#: the port's own kernels, listed wherever they rank
+OWN_KERNELS = ("int8_gemm", "ita_attention", "igelu_kernel", "itamax_kernel")
+
+
+def union(intervals) -> list:
+    """The union of (start, end) intervals as sorted disjoint intervals."""
+    out: list = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return [(s, e) for s, e in out]
+
+
+def innermost(nested, w0: float, w1: float) -> list:
+    """[w0, w1] cut into (start, end, name) pieces, each named by the
+    innermost of the properly nested ``nested`` (start, end, name) spans
+    that covers it (None where none does)."""
+    out: list = []
+    stack: list = []
+    t = w0
+
+    def emit(end, name):
+        nonlocal t
+        end = min(max(end, t), w1)
+        if end > t:
+            out.append((t, end, name))
+        t = end
+
+    for s, e, name in sorted(nested, key=lambda x: (x[0], -x[1])):
+        while stack and stack[-1][0] <= s:
+            emit(stack[-1][0], stack[-1][1])
+            stack.pop()
+        emit(s, stack[-1][1] if stack else None)
+        stack.append((e, name))
+    while stack:
+        emit(stack[-1][0], stack[-1][1])
+        stack.pop()
+    emit(w1, None)
+    return out
+
+
+def ms_by_span(intervals: list, pieces: list) -> dict:
+    """ms of the sorted disjoint ``intervals`` inside each piece's span
+    (by the span's name without its arguments), largest first."""
+    by: dict = {}
+    i = 0
+    for s, e, name in pieces:
+        while i < len(intervals) and intervals[i][1] <= s:
+            i += 1
+        j = i
+        while j < len(intervals) and intervals[j][0] < e:
+            cut = min(e, intervals[j][1]) - max(s, intervals[j][0])
+            if cut > 0:
+                key = "(outside the spans)" if name is None else spans.base(name)
+                by[key] = by.get(key, 0.0) + cut
+            j += 1
+    return dict(sorted(by.items(), key=lambda kv: -kv[1]))
+
+
+def _by_span_line(what: str, by: dict, k: int = 10) -> None:
+    top = ", ".join(f"{n} {v:.3f}" for n, v in list(by.items())[:k]) or "none"
+    print(f"profile: {what} ms by program span: {top}")
+
+
 def profile_call(fn, device: torch.device, top: int = 12) -> dict:
-    """Trace one ``fn()``: device time by kernel name and the busy share."""
-    from torch.profiler import ProfilerActivity, profile
+    """Trace one ``fn()`` with the program's spans on.  Over the traced
+    window (the span around the call, on the trace's clock): device time
+    by kernel, the device's busy share (the union of device intervals over
+    the window), device time by the innermost program span (from the
+    spans' device twins), idle time by the innermost program span on the
+    host covering it, and the host's self time by program span."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     _sync(device)
-    t0 = time.perf_counter()
-    with profile(activities=activities) as prof:
-        fn()
-        _sync(device)
-    wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    launches = sum(e.count for e in kernels)
-    print(f"profile: traced wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
-          f"{launches} device kernels")
-    # the top kernels, then the port's own kernels wherever they rank
-    own = ("int8_gemm", "ita_attention", "igelu_kernel", "itamax_kernel")
-    for i, e in enumerate(kernels):
-        if i < top or any(k in e.key for k in own):
-            print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
-    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
-            "device_kernels": launches}
+    with spans.recording(), profile(activities=activities) as prof:
+        with record_function(WINDOW):
+            fn()
+            _sync(device)
+    host, twins, device_ops, window = [], [], [], None
+    for e in prof.events():
+        s, t = e.time_range.start / 1e3, e.time_range.end / 1e3  # ms
+        on_host = e.device_type.name == "CPU"
+        if e.name == WINDOW:
+            window = (s, t) if on_host else window
+        elif spans.is_program(e.name):
+            (host if on_host else twins).append((s, t, e.name))
+        elif e.device_type.name == "CUDA":
+            device_ops.append((s, t, e.name))
+    w0, w1 = window
+    wall = w1 - w0
+    busy = union((max(s, w0), min(t, w1)) for s, t, _ in device_ops if t > w0 and s < w1)
+    busy_ms = sum(e - s for s, e in busy)
+    gaps = [(a, b) for (_, a), (b, _) in zip([(w0, w0)] + busy, busy + [(w1, w1)]) if b > a]
+    kernels: dict = {}
+    for s, t, name in device_ops:
+        ms, n = kernels.get(name, (0.0, 0))
+        kernels[name] = (ms + t - s, n + 1)
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])
+    print(f"profile: traced wall {wall:.3f} ms, device busy {busy_ms:.3f} ms, "
+          f"{len(device_ops)} device kernels")
+    for i, (name, (ms, n)) in enumerate(ranked):
+        if i < top or any(k in name for k in OWN_KERNELS):
+            print(f"  {ms:9.3f} ms {n:6d}x  {name[:90]}")
+    share = busy_ms / wall if wall > 0 else 0.0
+    print(f"profile: busy {100 * share:.1f}%, idle {100 * (1 - share):.1f}% of the traced "
+          f"window of {wall:.3f} ms (idle {wall - busy_ms:.3f} ms)")
+    out = {"wall_ms": wall, "device_busy_ms": busy_ms, "device_kernels": len(device_ops),
+           "busy_share": share,
+           "device_ms_by_span": ms_by_span(busy, innermost(twins, w0, w1)),
+           "idle_ms_by_span": ms_by_span(gaps, innermost(host, w0, w1)),
+           "host_ms_by_span": ms_by_span([(w0, w1)], innermost(host, w0, w1))}
+    _by_span_line("device", out["device_ms_by_span"])
+    _by_span_line("idle", out["idle_ms_by_span"])
+    _by_span_line("host self", out["host_ms_by_span"])
+    return out
 
 
 def serve_encoder(model: api.CompiledModel, *, batch_size: int, steps: int, seed: int = 0,
@@ -162,18 +260,9 @@ def serve_encoder(model: api.CompiledModel, *, batch_size: int, steps: int, seed
         f"kernels per forward: {names}"
     )
     if profile:
-        stats["profile"] = _profile(lambda: session.forward(batches[0]), session.device,
-                                    1e3 * t_serve / steps, "forward")
+        print("profile: one forward")
+        stats["profile"] = profile_call(lambda: session.forward(batches[0]), session.device)
     return stats
-
-
-def _profile(fn, device: torch.device, untraced_ms: float, what: str) -> dict:
-    prof = profile_call(fn, device)
-    prof["busy_share"] = prof["device_busy_ms"] / untraced_ms
-    print(f"profile: device busy {prof['device_busy_ms']:.3f} ms of the untraced "
-          f"{untraced_ms:.3f} ms {what}: busy {100 * prof['busy_share']:.1f}%, "
-          f"idle {100 * (1 - prof['busy_share']):.1f}%")
-    return prof
 
 
 class DispatchCounter:
@@ -322,32 +411,18 @@ def serve_decoder(model: api.CompiledModel, *, max_batch: int, requests: int, pr
 
 
 def _profile_steps(engine, prompt_len: int, seed: int) -> dict:
-    """Untraced, then traced: ``max_batch`` fresh prompts of ``prompt_len``
-    tokens, the engine step that admits and prefills them (it also decodes
-    them once), and the next step, pure decode."""
+    """Traced: ``max_batch`` fresh prompts of ``prompt_len`` tokens, the
+    engine step that admits and prefills them (it also decodes them once),
+    and the next step, pure decode."""
     dev = engine.session.device
-    untraced = {}
-
-    def admit():
-        for p in synthesize_prompts(engine.cfg.vocab, n=engine.max_batch,
-                                    prompt_len=prompt_len, seed=seed + 2):
-            engine.submit(p, 3)
-
-    def timed_step():
-        _sync(dev)
-        t = time.perf_counter()
-        engine.step()
-        _sync(dev)
-        return 1e3 * (time.perf_counter() - t)
-
-    admit()
-    untraced["prefill"], untraced["decode"] = timed_step(), timed_step()
-    engine.run_until_idle()
-    admit()
-    out = {"profile_prefill_step": _profile(engine.step, dev, untraced["prefill"],
-                                            "engine step with a prefill"),
-           "profile_decode_step": _profile(engine.step, dev, untraced["decode"],
-                                           "engine step of pure decode")}
+    for p in synthesize_prompts(engine.cfg.vocab, n=engine.max_batch,
+                                prompt_len=prompt_len, seed=seed + 2):
+        engine.submit(p, 3)
+    out = {}
+    for key, what in (("profile_prefill_step", "engine step with a prefill"),
+                      ("profile_decode_step", "engine step of pure decode")):
+        print(f"profile: one {what}")
+        out[key] = profile_call(engine.step, dev)
     engine.run_until_idle()
     return out
 

@@ -610,6 +610,15 @@ class TestFrontend:
         assert stats["scheduler"]["policy"] == "priority-deadline"
         assert stats["sanitize"] == {"enabled": False, "lockdep_findings": 0,
                                      "shadow_findings": 0, "audit_findings": 0}
+        # where a step's time goes: queue wait, host phases, enqueue and fetch
+        assert 0.0 <= stats["queue_wait_p50_ms"] <= stats["queue_wait_p99_ms"]
+        phases = stats["engine_host_per_step"]
+        assert {"engine/admit", "engine/sample", "engine/finish"} <= set(phases)
+        assert all(p["ms"] >= 0.0 and p["calls"] > 0 for p in phases.values())
+        for key in ("prefill_enqueue_ms", "prefill_fetch_ms", "decode_enqueue_ms",
+                    "decode_fetch_ms"):
+            assert stats[key] > 0.0, key
+        assert stats["chunk_lane_use"] is None  # a dense engine has no chunk dispatch
         assert http_get_json(host, port, "/healthz")["status"] == "ok"
 
     def test_bad_request_is_structured_400_and_unknown_rid_404(self, olmo, served):
