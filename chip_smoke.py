@@ -17,7 +17,11 @@ exit code and no result line):
 3. kernels — each kernel, launched on the card at the shapes the main
    paths give it (plus ragged, multi-block, padded, GQA and causal cases),
    must equal its plain PyTorch version run on CPU copies of the same
-   inputs (integer-exact: tolerance zero); then it is timed on the device
+   inputs (integer-exact: tolerance zero), and ita_attention_paged, at
+   the benchmark's OLMo-1B shapes (16 lanes over 2048-row tables: a chunk
+   at each offset, three chunks beside parked lanes, a decode step at
+   mixed depths), its plain version (the gather) on the card; then it is
+   timed on the device
    (CUDA graph replays between CUDA events), per call with its dispatch,
    and its plain version on the card per call.  int8_gemm and
    ita_attention print each shape's time beside the recorded time of the
@@ -73,7 +77,9 @@ exit code and no result line):
    their tails, which copies the shared blocks they overwrite; 16 greedy
    decode steps follow with one slot parked by ``active``, and one slot
    is freed and re-prefilled mid-run.  int8_gemm must launch 112 times
-   per ``ita`` chunk and never in a decode step; the logits must equal
+   per ``ita`` chunk and never in a decode step, ita_attention_paged 16
+   times per chunk and decode step on both backends (the dense pair: never);
+   the logits must equal
    the dense pair's (the same prompts prefilled and teacher-forced over a
    dense region of 272 rows, where both attend in one flash block) at
    every step, the shared slots' must equal the same prompts prefilled
@@ -91,8 +97,9 @@ exit code and no result line):
    cancelled while resident.  The ``ita`` engine, the ``w8a8`` engine and
    an ``ita`` engine without the prefix cache must stream the same tokens;
    int8_gemm must launch 112 times per prefill dispatch of the ``ita``
-   engines (counted per ``prefill_slot`` / ``prefill_chunks`` call) and no
-   kernel in a decode step; the prefix cache's hits and the sharing audit
+   engines (counted per ``prefill_slot`` / ``prefill_chunks`` call),
+   ita_attention_paged 16 times per prefill dispatch and decode step, and
+   no other kernel; the prefix cache's hits and the sharing audit
    must be those predicted.  The ``ita`` engine then serves the first 8
    requests behind ``AsyncEngine`` + ``ServingFrontend`` to 8 concurrent
    HTTP streams, which must carry the same tokens.  Each run prints
@@ -114,7 +121,8 @@ exit code and no result line):
    package's knobs (37 blocks of 64, fusion boundary 2), and an ``Engine``
    over the tuned pair, with the engine phase's weights and 12 requests,
    must stream the untuned ``ita`` engine's tokens, with int8_gemm 112
-   times per prefill dispatch, no kernel in a decode step and
+   times per prefill dispatch, ita_attention_paged 16 times per prefill
+   dispatch and decode step, and
    ``EngineStats.verify_ms`` > 0; tok/s, TPOT, step p50 / p99, prefill
    dispatches and ms per decode step print for both engines (the tuned
    knobs minimise the ITA ASIC model's step, not the card's).
@@ -495,6 +503,95 @@ def attn_bytes_ops(bh, bhkv, s, d, kv_valid, causal):
     return n_bytes, 2 * 2 * bh * pairs * d
 
 
+#: OLMo-1B's paged attention in the benchmark's cells: 16 lanes, 16 heads of
+#: 128, blocks of 16 rows, 2048-row tables (128 blocks), KV blocks of 512
+PAGED_ATTN = dict(lanes=16, heads=16, kv_heads=16, head_dim=128, block=16, cols=128,
+                  block_k=512)
+
+
+def paged_attn_cases(rng, lanes: int, rows: int) -> list:
+    """(label, S, offsets, parked lanes) of the ita_attention_paged checks: a
+    512-query chunk at each offset of the table, a docqa-like dispatch of
+    three chunks whose other lanes are parked (all-scratch tables, offset
+    0), and a decode step at mixed depths with one lane parked on scratch
+    and one past its table."""
+    quarter = [rows // 4 * (i % 4) for i in range(lanes)]
+    docqa = [0, rows // 4, rows // 2] + [0] * (lanes - 3)
+    depths = [int(x) for x in rng.integers(0, rows, lanes)]
+    depths[-2:] = [0, rows]
+    return [("chunk-each-offset", 512, quarter, []),
+            ("chunk-docqa-parked", 512, docqa, list(range(3, lanes))),
+            ("decode-mixed-depths", 1, depths, [lanes - 2])]
+
+
+def paged_attn_bytes_ops(heads, kv_heads, s, d, offsets, rows):
+    """q read once, out written once, each K and V row a lane's queries need
+    read once, the tables; int8 ops of Q K^T and P V over each query's keys
+    [0, pos + i] below the table's width."""
+    need = sum(min(p + s, rows) for p in offsets)
+    keys = sum(min(p + i + 1, rows) for p in offsets for i in range(s))
+    n_bytes = 2 * len(offsets) * s * heads * d + 2 * need * kv_heads * d \
+        + len(offsets) * rows // PAGED_ATTN["block"] * 4 + 96 * 4
+    return n_bytes, 2 * 2 * heads * keys * d
+
+
+def paged_attn_phase(torch, gen, dev) -> dict:
+    """ita_attention_paged on the card against its plain version (the
+    gather, on the card) at the cells' shapes, each case torch.equal, then
+    timed; returns the chunk-at-each-offset case's ``kernels`` entry."""
+    import numpy as np
+
+    from repro_torch.kernels.ita_attention import ita_attention_paged, ita_attention_paged_ref
+    from repro_torch.kernels.ita_attention.ops import paged_launch_grid
+
+    c = PAGED_ATTN
+    b, h, hkv, d, bs, cols = (c[k] for k in ("lanes", "heads", "kv_heads", "head_dim",
+                                             "block", "cols"))
+    rows = cols * bs
+    kw = dict(heads=h, kv_heads=hkv, head_dim=d, block_k=c["block_k"], s_q=0.01, s_k=0.01,
+              s_v=0.01, s_out=0.00125)
+    pool = (b * cols + 1, hkv, bs, d)
+    k_pool = torch.randint(-128, 128, pool, generator=gen, dtype=torch.int8).to(dev)
+    v_pool = torch.randint(-128, 128, pool, generator=gen, dtype=torch.int8).to(dev)
+    own = (torch.randperm(b * cols, generator=gen) + 1).reshape(b, cols).to(torch.int32)
+    err, entry = 0.0, None
+    for label, s, offsets, parked in paged_attn_cases(np.random.default_rng(SEED), b, rows):
+        table = own.clone()
+        table[parked] = 0  # the scratch block
+        table = table.to(dev)
+        pos = np.asarray(offsets, np.int32)
+        q = torch.randint(-128, 128, (b, s, h * d), generator=gen, dtype=torch.int8).to(dev)
+        before = ita_attention_paged.launches
+        got = ita_attention_paged(q, k_pool, v_pool, pos, table, **kw)
+        torch.cuda.synchronize()
+        require(ita_attention_paged.launches == before + 1, f"ita_attention_paged {label}: "
+                "not one launch")
+        want = ita_attention_paged_ref(q, k_pool, v_pool, pos, table, **kw)
+        err = max(err, max_abs_err(got, want.cpu()))
+        require(torch.equal(got, want), f"ita_attention_paged {label} != plain")
+        ms = device_ms(lambda: ita_attention_paged(q, k_pool, v_pool, pos, table, **kw))
+        per_call = call_ms(lambda: ita_attention_paged(q, k_pool, v_pool, pos, table, **kw),
+                           reps=20)
+        plain = call_ms(lambda: ita_attention_paged_ref(q, k_pool, v_pool, pos, table, **kw),
+                        reps=3)
+        bnd, by = bound_ms(*paged_attn_bytes_ops(h, hkv, s, d, offsets, rows))
+        out, groups, split, ring, gx, gy = paged_launch_grid(b, h, hkv, s, d, c["block_k"])
+        log(f"  ita_attention_paged {label:20s} B={b} S={s:3d} H={h}/{hkv} D={d} rows={rows} "
+            f"parked={len(parked)}: equal; device {ms:.4f} ms (per call with dispatch "
+            f"{per_call:.4f} ms), plain on the card {plain:.4f} ms, bound {bnd:.5f} ms ({by}); "
+            f"{out} columns, {groups} row groups x {split} warps, ring {ring}, {gx * gy} "
+            f"blocks")
+        if label == "chunk-each-offset":
+            entry = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
+    return {"name": "ita_attention_paged", "route": "cuda",
+            "source": "src/repro_torch/csrc/ita_attention.cu",
+            "replaces": "src/repro/core/heterogeneous.py:467", "launches": 0,
+            "max_abs_err": err, **entry, "library_ms": None,
+            "work": "one OLMo-1B layer's attn_paged in a 16 x 512 chunk dispatch, 4 lanes at "
+                    "each offset of 2048-row tables: 16 heads of 128, blocks of 16, block_k "
+                    "512; no PyTorch call computes integer flash-ITAMax attention"}
+
+
 def rows_bytes(n_elem: int) -> tuple[int, int]:
     """An elementwise or rowwise int8 -> int8 kernel: each input byte read
     once, each output byte written once; its integer instructions run on
@@ -746,6 +843,8 @@ def kernel_phase(torch, gen, dev) -> list[dict]:
         if label == "deit-ti-widths":
             igelu_deit = (ms, plain, bnd, by)
 
+    paged = paged_attn_phase(torch, gen, dev)
+
     return [
         {"name": "int8_gemm", "route": "cuda", "source": "src/repro_torch/csrc/int8_gemm.cu",
          "replaces": "src/repro/kernels/int8_gemm/kernel.py:87", "launches": 0,
@@ -771,6 +870,7 @@ def kernel_phase(torch, gen, dev) -> list[dict]:
          "bound_ms": itamax_mb[2], "bound_by": itamax_mb[3], "library_ms": None,
          "work": "one MobileBERT w8a8 layer's softmax at batch 8: 4096 rows of 128 int8; "
                  "no PyTorch call computes integer ITAMax"},
+        paged,
     ]
 
 
@@ -1231,7 +1331,10 @@ def paged_phase(torch, card: str, dev) -> dict[str, int]:
         def step_done(label, kind):
             got = {name: w.launches for name, w in wrappers.items()}
             gemm = gemm_per_chunk if (backend == "ita" and kind == "chunk") else 0
-            want = {name: gemm if name == "int8_gemm" else 0 for name in wrappers}
+            # a paged dispatch attends through the paged kernel once a layer
+            attn = cfg.n_layers if plan_kind.startswith("paged") else 0
+            want = {name: gemm if name == "int8_gemm" else attn
+                    if name == "ita_attention_paged" else 0 for name in wrappers}
             require(got == want, f"{plan_kind} {backend} {label}: launches {got}, expected {want}")
             for name, n in got.items():
                 launches[name] += n
@@ -1306,8 +1409,8 @@ def paged_phase(torch, card: str, dev) -> dict[str, int]:
             f"{pg['chunk'][1]:.3f} ms (dense prefill {dn['chunk'][0]:.3f} ms); decode step "
             f"median {statistics.median(pg['decode']):.3f} ms (dense "
             f"{statistics.median(dn['decode']):.3f} ms); int8_gemm "
-            f"{gemm_per_chunk if be == 'ita' else 0} launches a chunk, no kernel a decode "
-            f"step; on {card}")
+            f"{gemm_per_chunk if be == 'ita' else 0} launches a chunk, ita_attention_paged "
+            f"{cfg.n_layers} a paged chunk or decode step; on {card}")
     log(f"  [paged] copy-on-write copies {(b_n - half) * (-(-p['shared_rows'] // p['block']) - s // p['block'])}"
         f" and free blocks as predicted at every stage")
     del flows
@@ -1384,9 +1487,9 @@ ENGINE_PREFIX = dict(prefix_lookups=12, prefix_hits=6, full_prefix_hits=2)
 
 def check_engine_launches(dev, what: str, model, counter, stats, launches: dict) -> None:
     """int8_gemm 7 times a layer (112 at OLMo-1B's 16) per prefill dispatch
-    on ita, nothing else, and no kernel in any decode step; each call the
-    engine counted.  Adds the run's launches to ``launches`` and sets the
-    counts to 0."""
+    on ita, over a paged pool ita_attention_paged once a layer per prefill
+    dispatch and decode step, nothing else; each call the engine counted.
+    Adds the run's launches to ``launches`` and sets the counts to 0."""
     from repro_torch import kernels
 
     wrappers = kernels.wrappers()
@@ -1397,9 +1500,13 @@ def check_engine_launches(dev, what: str, model, counter, stats, launches: dict)
             f"{stats.prefill_dispatches} prefill and {stats.decode_dispatches} decode")
     if dev.type == "cuda":  # the wrappers count launches on the card only
         gemm = olmo_gemms(model) * counter.calls["prefill"]
-        want = {name: gemm if name == "int8_gemm" else 0 for name in wrappers}
+        attn = model.cfg.n_layers if model.artifact.paged else 0
+        want = {name: gemm if name == "int8_gemm" else
+                attn * (counter.calls["prefill"] + counter.calls["decode"])
+                if name == "ita_attention_paged" else 0 for name in wrappers}
         require(got == want, f"{what}: launches {got}, expected {want}")
-        require(not counter.launches["decode"],
+        steps = attn * counter.calls["decode"]
+        require(counter.launches["decode"] == ({"ita_attention_paged": steps} if steps else {}),
                 f"{what}: kernels in decode steps {counter.launches['decode']}")
     for name, n in got.items():
         launches[name] += n
@@ -1471,7 +1578,8 @@ def serve_engine(torch, card: str, dev, model, qp, prompts: list, what: str, lau
             require(got == ENGINE_PREFIX, f"{what}: prefix cache {got}, expected {ENGINE_PREFIX}")
     log(f"  {tag} olmo-1b ({what}): {len(prompts)} requests in {secs:.2f}s on {card}; "
         f"{stats.prefill_dispatches} prefill dispatches (int8_gemm {olmo_gemms(model)} "
-        f"launches each), {stats.decode_dispatches} decode steps (no kernel); "
+        f"launches each), {stats.decode_dispatches} decode steps; ita_attention_paged "
+        f"{model.cfg.n_layers if model.artifact.paged else 0} launches a dispatch; "
         f"{stats.summary()}")
     return engine, streams, stats, secs
 

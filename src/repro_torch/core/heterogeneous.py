@@ -157,7 +157,9 @@ def populate_default_table(table: DispatchTable | None = None) -> DispatchTable:
 
     Decoder / KV-cache kinds (all cluster, as in the reference: integer
     RoPE, SiLU and cache maintenance are the cluster's software kernels,
-    and the ITA attention datapath has no causal or cache-mask mode):
+    and the ITA attention datapath has no causal or cache-mask mode; on
+    the card ``attn_paged`` launches the paged flash-ITAMax kernel,
+    ``ita_attention_paged``):
 
       rope:        fn(x_q, positions, *, heads, head_dim, theta) -> int8
       attn_causal: fn(q, k, v, *, heads, kv_heads, head_dim, s_act, s_out,
@@ -202,6 +204,7 @@ def populate_default_table(table: DispatchTable | None = None) -> DispatchTable:
     from repro_torch.core.quant_linear import ACT_IDENTITY, make_qlinear_params, qlinear_i8
     from repro_torch.kernels.igelu import igelu, igelu_ref
     from repro_torch.kernels.int8_gemm import int8_gemm
+    from repro_torch.kernels.ita_attention.ops import ita_attention_paged
     from repro_torch.kernels.itamax import itamax
     from repro_torch.models import layers as L
     from repro_torch.models.encoder import attention_ita
@@ -419,27 +422,11 @@ def populate_default_table(table: DispatchTable | None = None) -> DispatchTable:
 
     def _attn_paged(q_m, k_pool, v_pool, pos, table_q, *, heads, kv_heads,
                     head_dim, s_act, s_out, block_k):
-        p = MhaQParams.make_flash(s_act, s_act, s_act, s_out, max(head_dim, 1))
-        qh = _split(q_m, heads, head_dim)  # [B, H, S, D]
-        b, _, s, _ = qh.shape
-        table = _table(table_q, b, k_pool.device)
-        # the slot's logical cache is its blocks in table order, [B, Hkv,
-        # nb * block_size, D]; rows past the valid prefix (scratch or stale
-        # blocks) are masked below, and a fully masked flash update is
-        # bit-neutral, so the gathered width does not change the ints
-        kg = k_pool[table].permute(0, 2, 1, 3, 4).reshape(b, kv_heads, -1, head_dim)
-        vg = v_pool[table].permute(0, 2, 1, 3, 4).reshape(b, kv_heads, -1, head_dim)
-        rows = kg.shape[2]
-        # query i sits at global row pos + i and attends rows [0, pos + i]:
-        # causality at a chunk offset as a per-query kv_len bound, so decode
-        # (S = 1) and chunked prefill share one runner
-        kv_len = torch.from_numpy((_lane_rows(pos, b, s) + 1).astype(np.int32))
-        bk = min(block_k, rows)
-        if rows % bk:
-            bk = rows  # the reference's fallback: the flash result depends on it
-        out = attention_decode_i8(qh, kg, vg, kv_len.to(q_m.device)[:, None, :, None], p,
-                                  block_k=bk)
-        return _merge(out)
+        # on the card the paged kernel reads K/V through the table; on the
+        # CPU its plain version gathers each lane's blocks
+        return ita_attention_paged(q_m, k_pool, v_pool, pos, table_q, heads=heads,
+                                   kv_heads=kv_heads, head_dim=head_dim, s_q=s_act, s_k=s_act,
+                                   s_v=s_act, s_out=s_out, block_k=block_k)
 
     table.register("attn_paged", Engine.CLUSTER, _attn_paged)
 

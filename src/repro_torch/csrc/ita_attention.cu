@@ -52,6 +52,24 @@
 //   added by the MMA (integer addition, exact in any order), guarded after
 //   it, and finalized there (floor division by a double reciprocal with an
 //   exact integer correction, Q7.7, output requant).
+//
+// The paged variant (ita_attention_paged_kernel, the decoder's attn_paged
+// cluster op; no TPU kernel: the Pallas path had no paged attention) runs
+// the same body over a shared KV pool [P+1, Hkv, block_size, D]: key j of
+// lane b is pool[table[b, j / block_size], h, j % block_size], so each
+// staged row is 16-byte copies from the block the table names (a 128-key
+// sub-tile spans several pool blocks) and no gathered copy of the lane's
+// cache exists.  Query i of lane b sits at position pos_b + i and keeps keys
+// [0, pos_b + i] below the table's width: the causal mask at a per-lane
+// offset, which reaches the kernel as a launch argument.  Q is read and the
+// output written in the plan's merged [B, S, H*D] layout.  A lane parked at
+// depth 0 walks one KV block, a decode row at depth p walks ceil((p+1) /
+// block_k), the blocks past every row of a tile being skipped as above.
+// Its grids are large (every lane's heads and query tiles), and the
+// integer work per logit is what bounds it, so on heads wider than 64 a
+// block computes 128 output columns (two warps a row group, each holding
+// 64 of them), and a block's logits and exponentials serve all of them
+// (ops.paged_grid picks the shape, two blocks to an SM where they fit).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,7 +79,7 @@
 namespace {
 
 constexpr int KS = 128;    // keys per staged K or V sub-tile
-constexpr int DV = 64;     // output columns per block (grid.y)
+constexpr int DV = 64;     // output columns per block (grid.y); the paged kernel's: 64 or 128
 constexpr int NSTAGE = 4;  // deepest cp.async ring (sub-tiles); wide heads take 3 or 2
 constexpr int QREG = 4;    // Q k-steps held in registers (D <= 128)
 constexpr int M_SENTINEL = -(1 << 15);
@@ -74,14 +92,14 @@ struct Layout {
 };
 
 // Shared memory of a block of `qw` row groups (16 query rows each) with a
-// ring of `nstage` sub-tiles.  dp: D padded to the MMA's k-step; bkp:
-// block_k padded to whole sub-tiles.
-__host__ __device__ Layout make_layout(int qw, int block_k, int d, int nstage) {
+// ring of `nstage` sub-tiles, computing `dv` output columns.  dp: D padded
+// to the MMA's k-step; bkp: block_k padded to whole sub-tiles.
+__host__ __device__ Layout make_layout(int qw, int block_k, int d, int nstage, int dv = DV) {
   Layout L;
   L.dp = (d + 31) / 32 * 32;
   L.bkp = (block_k + KS - 1) / KS * KS;
   L.lrow = L.bkp + 16;  // int8 logits per row, padded against bank conflicts
-  L.slot = KS * (L.dp > DV ? L.dp : DV);
+  L.slot = KS * (L.dp > dv ? L.dp : dv);
   size_t o = 0;
   L.q_off = o; o += (size_t)16 * qw * L.dp;     // Q tile
   L.l_off = o; o += (size_t)16 * qw * L.lrow;   // int8 logits of the KV block
@@ -145,6 +163,29 @@ __device__ __forceinline__ void load_tile(int8_t* dst, int nrows, const Chunks& 
   }
 }
 
+// load_tile for rows that lie apart (the paged kernel's K/V through the
+// block table, its Q rows `heads * D` apart): row r starts at row_at(r),
+// which is read only for r < rows_valid.
+template <class RowAt>
+__device__ __forceinline__ void load_rows(int8_t* dst, int nrows, const Chunks& ch, RowAt row_at,
+                                          const int8_t* any_valid, int rows_valid, int col0,
+                                          int D, bool vec, int tid, int nt) {
+  if (ch.fixed) {
+    for (int r = ch.r0; r < nrows; r += ch.step) {
+      const bool ok = r < rows_valid;
+      load_chunk(dst, r * ch.cpr + ch.c, 0, col0 + 16 * ch.c, ok ? row_at(r) : any_valid,
+                 any_valid, ok, D, vec);
+    }
+  } else {
+    for (int e = tid; e < nrows * ch.cpr; e += nt) {
+      const int r = e / ch.cpr;
+      const bool ok = r < rows_valid;
+      load_chunk(dst, e, 0, col0 + 16 * (e % ch.cpr), ok ? row_at(r) : any_valid, any_valid,
+                 ok, D, vec);
+    }
+  }
+}
+
 // S[0..NTK) += Q (16 rows, k-step ks) x K^T of the sub-tile's keys kb..
 template <int NTK>
 __device__ __forceinline__ void qk_step(int S[][4], const uint32_t a[4], const int8_t* kt,
@@ -158,28 +199,48 @@ __device__ __forceinline__ void qk_step(int S[][4], const uint32_t a[4], const i
   }
 }
 
+// Where a paged launch's keys lie (ita_attention_paged_kernel): lane b's
+// block table at table + b * tstride (tstride 0: one table for every
+// lane), `bs` rows a pool block, `heads` query heads and `kv_heads` KV
+// heads a lane.
+struct Paged {
+  const int* table;
+  int tstride, bs, heads, kv_heads;
+};
+
+// The lanes' offsets (query 0 of lane b sits at position pos[b]), passed
+// by value: no copy to the device before the launch.
+constexpr int MAX_LANES = 256;
+struct LanePos {
+  int pos[MAX_LANES];
+};
+
 // One block of 32 * qw * KSPLIT threads per (bh, 16 * qw query rows, DV
 // output columns).  A row group of 16 rows belongs to KSPLIT warps: each
 // computes the logits and exponentials of KS / KSPLIT of every sub-tile's
 // keys and P V for DV / KSPLIT of the output columns (KSPLIT = 2 shares P,
 // the row max and the row sum through shared memory), so a small grid
-// still has warps enough to hide each other's latency.
-template <int KSPLIT>
-__global__ void __launch_bounds__(128) ita_attention_kernel(
+// still has warps enough to hide each other's latency.  PAGED: Q, out
+// [B, Sq, H*D] (bh = b * H + h), K/V rows through the block table, query
+// positions from q_offset = pos_b; OUT (= DV, or 128 for the paged kernel
+// on heads wider than 64) output columns a block, so that one block's
+// logits and exponentials serve all of them.
+template <int KSPLIT, bool PAGED, int OUT>
+__device__ __forceinline__ void attention_body(
     const int8_t* __restrict__ q, const int8_t* __restrict__ k,
     const int8_t* __restrict__ v, const int* __restrict__ luts,
     int8_t* __restrict__ out, int Sq, int Sk, int D, int group, int logit_mult,
     int logit_shift, int out_mult, int out_shift, int causal, int block_k, int kv_valid,
-    int qw, int nstage) {
+    int qw, int nstage, const Paged pg, int q_offset) {
   constexpr int KW = KS / KSPLIT;  // keys per warp per sub-tile
   constexpr int NTK = KW / 8;      // n8 tiles of logits per warp
-  constexpr int CG = 2 / KSPLIT;   // 32-column output groups per warp
+  constexpr int CG = OUT / 32 / KSPLIT;  // 32-column output groups per warp
   extern __shared__ __align__(128) unsigned char smem[];
   // exp LUT over every t = m - l the logits can give (int8 m >= l: t in
   // [0, 255]), then the 10-bit renormalization LUT
   __shared__ __align__(16) uint8_t exp_t[256];
   __shared__ int rlut[32];
-  const Layout L = make_layout(qw, block_k, D, nstage);
+  const Layout L = make_layout(qw, block_k, D, nstage, OUT);
   int8_t* Qs = reinterpret_cast<int8_t*>(smem + L.q_off);     // [16 qw][dp], swizzled
   int8_t* Ls = reinterpret_cast<int8_t*>(smem + L.l_off);     // [16 qw][lrow] int8 logits
   int8_t* Ps = reinterpret_cast<int8_t*>(smem + L.p_off);     // [qw][16][KS], swizzled
@@ -194,17 +255,51 @@ __global__ void __launch_bounds__(128) ita_attention_kernel(
   const int qtiles = (Sq + rows - 1) / rows;
   const int bh = blockIdx.x / qtiles;
   const int q0 = (blockIdx.x % qtiles) * rows;
-  const int dcol0 = blockIdx.y * DV;
-  const int q_offset = Sk - Sq;
-  const int8_t* qg = q + (size_t)bh * Sq * D;
-  const int8_t* kg = k + (size_t)(bh / group) * Sk * D;
-  const int8_t* vg = v + (size_t)(bh / group) * Sk * D;
+  const int dcol0 = blockIdx.y * OUT;
+  // query row r of this head at qg + r * qstride (PAGED: its output at
+  // og + r * qstride)
+  const int8_t* qg;
+  int8_t* og = out;
+  int qstride = D;
+  const int8_t *kg, *vg;  // key 0 of this head (PAGED: of pool block 0)
+  const int* tbl = nullptr;
+  size_t pblock = 0;  // PAGED: bytes from one pool block to the next
+  int last_q = q0 + rows;  // query rows of this block end before it
+  if constexpr (PAGED) {
+    const int b = bh / pg.heads, h = bh - b * pg.heads;
+    qstride = pg.heads * D;
+    qg = q + ((size_t)b * Sq * pg.heads + h) * D;
+    og = out + ((size_t)b * Sq * pg.heads + h) * D;
+    tbl = pg.table + (size_t)b * pg.tstride;
+    pblock = (size_t)pg.kv_heads * pg.bs * D;
+    kg = k + (size_t)(h / group) * pg.bs * D;
+    vg = v + (size_t)(h / group) * pg.bs * D;
+    last_q = min(last_q, Sq);
+  } else {
+    q_offset = Sk - Sq;
+    qg = q + (size_t)bh * Sq * D;
+    kg = k + (size_t)(bh / group) * Sk * D;
+    vg = v + (size_t)(bh / group) * Sk * D;
+  }
   const int dt = L.dp / 32, cpr = L.dp / 16;
   const bool vec = D % 16 == 0;
+  // rows [key0, key0 + KS) of this head's K (base kg) or V (base vg) into
+  // ring slot dst: through the block table where PAGED, else contiguous
+  auto load_keys = [&](int8_t* dst, const Chunks& ch, const int8_t* base, const int8_t* any,
+                       int key0, int valid, int col0) {
+    if constexpr (PAGED) {
+      load_rows(dst, KS, ch, [&](int r) {
+        const int key = key0 + r, blk = key / pg.bs;
+        return base + (size_t)tbl[blk] * pblock + (size_t)(key - blk * pg.bs) * D;
+      }, any, valid, col0, D, vec, tid, nt);
+    } else {
+      load_tile(dst, KS, ch, base + (size_t)key0 * D, any, valid, col0, D, vec, tid, nt);
+    }
+  };
 
   // KV blocks that hold a key some row of this block keeps
   int kv_end = min(Sk, max(kv_valid, 0));
-  if (causal) kv_end = min(kv_end, q0 + rows + q_offset);  // keys <= last query position
+  if (causal) kv_end = min(kv_end, last_q + q_offset);  // keys <= last query position
   const int nb = kv_end > 0 ? (kv_end + block_k - 1) / block_k : 0;
   const int nsub = (block_k + KS - 1) / KS;
   // units: per KV block, nsub K sub-tiles then nsub V sub-tiles; a unit is
@@ -213,19 +308,23 @@ __global__ void __launch_bounds__(128) ita_attention_kernel(
   auto advance = [&](int& b, int& rem) {
     if (++rem == 2 * nsub) rem = 0, ++b;
   };
-  const Chunks kch = make_chunks(cpr, tid, nt), vch = make_chunks(DV / 16, tid, nt);
+  const Chunks kch = make_chunks(cpr, tid, nt), vch = make_chunks(OUT / 16, tid, nt);
   auto load_unit = [&](int b, int rem, int slot) {
     int s = rem < nsub ? rem : rem - nsub;
     int key0 = b * block_k + s * KS;
     int8_t* dst = ring + (size_t)slot * L.slot;
     int valid = min(KS, block_k - s * KS);
     if (rem < nsub)
-      load_tile(dst, KS, kch, kg + (size_t)key0 * D, k, valid, 0, D, vec, tid, nt);
+      load_keys(dst, kch, kg, k, key0, valid, 0);
     else
-      load_tile(dst, KS, vch, vg + (size_t)key0 * D, v, valid, dcol0, D, vec, tid, nt);
+      load_keys(dst, vch, vg, v, key0, valid, dcol0);
   };
 
-  load_tile(Qs, rows, kch, qg + (size_t)q0 * D, q, Sq - q0, 0, D, vec, tid, nt);
+  if constexpr (PAGED)
+    load_rows(Qs, rows, kch, [&](int r) { return qg + (size_t)(q0 + r) * qstride; }, q, Sq - q0,
+              0, D, vec, tid, nt);
+  else
+    load_tile(Qs, rows, kch, qg + (size_t)q0 * D, q, Sq - q0, 0, D, vec, tid, nt);
   mma::cp_async_commit();
   int pb = 0, prem = 0;  // next unit to load
   for (int s = 0; s < nstage - 1; ++s) {
@@ -254,9 +353,9 @@ __global__ void __launch_bounds__(128) ita_attention_kernel(
   int8_t* ptile = Ps + (size_t)(16 * rg) * KS;
   int* xmax = Xs + rg * 64;  // [half][16]
   int* xsum = xmax + 32;
-  int voff[CG][8];  // this lane's V words per column group (keys 32 kk further: + 32 kk DV)
+  int voff[CG][8];  // this lane's V words per column group (keys 32 kk further: + 32 kk OUT)
 #pragma unroll
-  for (int c = 0; c < CG; ++c) mma::b_transposed_offsets(voff[c], DV / 16, 2 * (cg0 + c), lane);
+  for (int c = 0; c < CG; ++c) mma::b_transposed_offsets(voff[c], OUT / 16, 2 * (cg0 + c), lane);
   const int qpos0 = q0 + 16 * rg + g + q_offset;  // query position of row g
   const int qpos_min = q0 + 16 * rg + q_offset;   // of the group's first row
 
@@ -400,7 +499,7 @@ __global__ void __launch_bounds__(128) ita_attention_kernel(
           const int grp = cg0 + c;
           if (dcol0 + 32 * grp >= D) continue;
           uint32_t b0[4], b1[4];
-          mma::load_b_transposed(b0, b1, tile + 32 * kk * DV, voff[c]);
+          mma::load_b_transposed(b0, b1, tile + 32 * kk * OUT, voff[c]);
 #pragma unroll
           for (int j = 0; j < 4; ++j) mma::mma_s8(acc[c][j], pa, b0[j], b1[j]);
         }
@@ -461,7 +560,8 @@ __global__ void __launch_bounds__(128) ita_attention_kernel(
         if (i < 4) lo |= o << (8 * i);
         else hi |= o << (8 * (i - 4));
       }
-      int8_t* dst = out + ((size_t)bh * Sq + row) * D + col0;
+      int8_t* dst = PAGED ? og + (size_t)row * qstride + col0
+                          : out + ((size_t)bh * Sq + row) * D + col0;
       if (D % 8 == 0) {
         *reinterpret_cast<uint2*>(dst) = make_uint2(lo, hi);
       } else {
@@ -474,18 +574,68 @@ __global__ void __launch_bounds__(128) ita_attention_kernel(
 }
 
 template <int KSPLIT>
+__global__ void __launch_bounds__(128) ita_attention_kernel(
+    const int8_t* __restrict__ q, const int8_t* __restrict__ k,
+    const int8_t* __restrict__ v, const int* __restrict__ luts,
+    int8_t* __restrict__ out, int Sq, int Sk, int D, int group, int logit_mult,
+    int logit_shift, int out_mult, int out_shift, int causal, int block_k, int kv_valid,
+    int qw, int nstage) {
+  attention_body<KSPLIT, false, DV>(q, k, v, luts, out, Sq, Sk, D, group, logit_mult, logit_shift,
+                                out_mult, out_shift, causal, block_k, kv_valid, qw, nstage,
+                                Paged{nullptr, 0, 1, 1, 1}, 0);
+}
+
+// Sk: the table's width in rows, every key below it valid; causal at the
+// lane's offset.
+template <int KSPLIT, int OUT>
+__global__ void __launch_bounds__(128) ita_attention_paged_kernel(
+    const int8_t* __restrict__ q, const int8_t* __restrict__ k,
+    const int8_t* __restrict__ v, const int* __restrict__ luts,
+    int8_t* __restrict__ out, int Sq, int Sk, int D, int group, int logit_mult,
+    int logit_shift, int out_mult, int out_shift, int block_k, int qw, int nstage,
+    const Paged pg, const __grid_constant__ LanePos lanes) {
+  const int qtiles = (Sq + 16 * qw - 1) / (16 * qw);
+  const int b = blockIdx.x / qtiles / pg.heads;
+  attention_body<KSPLIT, true, OUT>(q, k, v, luts, out, Sq, Sk, D, group, logit_mult, logit_shift,
+                               out_mult, out_shift, 1, block_k, Sk, qw, nstage, pg,
+                               lanes.pos[b]);
+}
+
+template <class Kernel>
+void allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes > 48 * 1024)  // above 48 KB only after an explicit opt-in
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int KSPLIT>
 int launch(const void* q, const void* k, const void* v, const void* luts, void* out, int Sq,
            int Sk, int D, int group, int logit_mult, int logit_shift, int out_mult,
            int out_shift, int causal, int block_k, int kv_valid, int qw, int nstage, dim3 grid,
            size_t bytes, cudaStream_t stream) {
-  if (bytes > 48 * 1024)  // above 48 KB only after an explicit opt-in
-    cudaFuncSetAttribute(ita_attention_kernel<KSPLIT>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  allow_smem(ita_attention_kernel<KSPLIT>, bytes);
   ita_attention_kernel<KSPLIT><<<grid, 32 * qw * KSPLIT, bytes, stream>>>(
       (const int8_t*)q, (const int8_t*)k, (const int8_t*)v, (const int*)luts, (int8_t*)out,
       Sq, Sk, D, group, logit_mult, logit_shift, out_mult, out_shift, causal, block_k,
       kv_valid, qw, nstage);
   return (int)cudaGetLastError();
+}
+
+template <int KSPLIT, int OUT>
+int launch_paged(const void* q, const void* k, const void* v, const void* luts, void* out,
+                 int Sq, int Sk, int D, int group, int logit_mult, int logit_shift,
+                 int out_mult, int out_shift, int block_k, int qw, int nstage, const Paged& pg,
+                 const LanePos& lanes, dim3 grid, size_t bytes, cudaStream_t stream) {
+  allow_smem(ita_attention_paged_kernel<KSPLIT, OUT>, bytes);
+  ita_attention_paged_kernel<KSPLIT, OUT><<<grid, 32 * qw * KSPLIT, bytes, stream>>>(
+      (const int8_t*)q, (const int8_t*)k, (const int8_t*)v, (const int*)luts, (int8_t*)out,
+      Sq, Sk, D, group, logit_mult, logit_shift, out_mult, out_shift, block_k, qw, nstage, pg,
+      lanes);
+  return (int)cudaGetLastError();
+}
+
+bool bad_shape(int qw, int ksplit, int nstage) {
+  return qw < 1 || (ksplit != 1 && ksplit != 2) || qw * ksplit > 4 || nstage < 2 ||
+         nstage > NSTAGE;
 }
 
 }  // namespace
@@ -500,9 +650,7 @@ extern "C" int ita_attention_launch(const void* q, const void* k, const void* v,
                                     int out_mult, int out_shift, int causal,
                                     int block_k, int kv_valid, int qw, int ksplit,
                                     int nstage, int grid_x, int grid_y, void* stream) {
-  if (qw < 1 || (ksplit != 1 && ksplit != 2) || qw * ksplit > 4 || nstage < 2 ||
-      nstage > NSTAGE)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(qw, ksplit, nstage)) return (int)cudaErrorInvalidValue;
   const int rows = 16 * qw;
   if (grid_x != BH * ((Sq + rows - 1) / rows) || grid_y != (D + DV - 1) / DV)
     return (int)cudaErrorInvalidValue;
@@ -511,5 +659,35 @@ extern "C" int ita_attention_launch(const void* q, const void* k, const void* v,
   auto run = ksplit == 2 ? launch<2> : launch<1>;
   return run(q, k, v, luts, out, Sq, Sk, D, group, logit_mult, logit_shift, out_mult,
              out_shift, causal, block_k, kv_valid, qw, nstage, dim3(grid_x, grid_y), bytes,
+             (cudaStream_t)stream);
+}
+
+// Paged: q, out int8 [B, Sq, heads * D]; k, v the pool [P+1, kv_heads, bs,
+// D]; table int32 [B, cols] (tstride cols) or [1, cols] (tstride 0); pos
+// the B lanes' offsets, host memory.  Keys [0, cols * bs) in blocks of
+// block_k (a divisor of cols * bs); `out_cols` (64 or 128) output columns a
+// block; grid as above with BH = B * heads, grid_y = ceil(D / out_cols).
+extern "C" int ita_attention_paged_launch(
+    const void* q, const void* k, const void* v, const void* luts, void* out,
+    const void* table, const int* pos, int B, int heads, int kv_heads, int Sq, int D, int cols,
+    int bs, int tstride, int logit_mult, int logit_shift, int out_mult, int out_shift,
+    int block_k, int out_cols, int qw, int ksplit, int nstage, int grid_x, int grid_y,
+    void* stream) {
+  if (bad_shape(qw, ksplit, nstage) || B < 1 || B > MAX_LANES || kv_heads < 1 ||
+      heads % kv_heads || bs < 1 || cols < 1 || block_k < 4 || (cols * bs) % block_k ||
+      (out_cols != 64 && out_cols != 128))
+    return (int)cudaErrorInvalidValue;
+  const int rows = 16 * qw;
+  if (grid_x != B * heads * ((Sq + rows - 1) / rows) || grid_y != (D + out_cols - 1) / out_cols)
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = make_layout(qw, block_k, D, nstage, out_cols).bytes;
+  if (bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  LanePos lanes;
+  for (int b = 0; b < B; ++b) lanes.pos[b] = pos[b];
+  const Paged pg{(const int*)table, tstride, bs, heads, kv_heads};
+  auto run = out_cols == 128 ? (ksplit == 2 ? launch_paged<2, 128> : launch_paged<1, 128>)
+                             : (ksplit == 2 ? launch_paged<2, 64> : launch_paged<1, 64>);
+  return run(q, k, v, luts, out, Sq, cols * bs, D, heads / kv_heads, logit_mult, logit_shift,
+             out_mult, out_shift, block_k, qw, nstage, pg, lanes, dim3(grid_x, grid_y), bytes,
              (cudaStream_t)stream);
 }

@@ -6,7 +6,8 @@ version) and ``ops.py`` (the wrapper: launches the CUDA kernel of
 on a CPU tensor, and counts its launches in ``<wrapper>.launches``).
 
 - ``int8_gemm``      : ITA GEMM mode (int8 matmul + requant + activation)
-- ``ita_attention``  : fused int8 MHA with streaming ITAMax (flash form)
+- ``ita_attention``  : fused int8 MHA with streaming ITAMax (flash form);
+  ``ita_attention_paged``, the same over a paged KV pool (``attn_paged``)
 - ``itamax``         : standalone rowwise integer softmax (``w8a8`` attention)
 - ``igelu``          : standalone elementwise i-GeLU (unfused GELU nodes)
 
@@ -22,7 +23,8 @@ import sys
 import types
 
 _KERNELS = ("int8_gemm", "ita_attention", "itamax", "igelu")
-_EXPORTS = {**{k: k for k in _KERNELS}, **{f"{k}_ref": k for k in _KERNELS}}
+_EXPORTS = {**{k: k for k in _KERNELS}, **{f"{k}_ref": k for k in _KERNELS},
+            "ita_attention_paged": "ita_attention", "ita_attention_paged_ref": "ita_attention"}
 
 
 class _Kernels(types.ModuleType):
@@ -48,4 +50,4 @@ def wrappers() -> dict:
     """Kernel name -> its public wrapper, whose ``launches`` counts the
     kernel's launches."""
     return {name: __getattr__(name) for name in
-            ("int8_gemm", "ita_attention", "igelu", "itamax")}
+            ("int8_gemm", "ita_attention", "igelu", "itamax", "ita_attention_paged")}

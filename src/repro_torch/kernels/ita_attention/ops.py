@@ -1,7 +1,9 @@
 """Public wrappers of the fused ITA attention kernel.
 
 On CUDA tensors they launch ``csrc/ita_attention.cu``; on CPU tensors
-they run the plain flash-ITAMax version, and only there.
+they run the plain flash-ITAMax version, and only there.  The paged
+wrapper (:func:`ita_attention_paged`) is the decoder's ``attn_paged``
+over a block pool.
 """
 
 from __future__ import annotations
@@ -14,7 +16,12 @@ import torch
 from repro_torch.core import itamax as im
 from repro_torch.core.attention import MhaQParams
 from repro_torch.kernels import _build
-from repro_torch.kernels.ita_attention.ref import ita_attention_ref
+from repro_torch.kernels.ita_attention.ref import (
+    ita_attention_paged_ref,
+    ita_attention_ref,
+    lane_offsets,
+    paged_block_k,
+)
 
 _LUTS: dict[torch.device, torch.Tensor] = {}
 
@@ -40,16 +47,17 @@ KV_SUBTILE, OUT_COLS, RING_SLOTS = 128, 64, 4
 SMEM_MAX = 227 * 1024 - 384
 
 
-def attn_smem(groups: int, block_k: int, d: int, slots: int) -> int:
+def attn_smem(groups: int, block_k: int, d: int, slots: int, out_cols: int = OUT_COLS) -> int:
     """Dynamic shared bytes of a block of ``groups`` row groups with a ring
-    of ``slots`` sub-tiles (mirrors the kernel's ``make_layout``): the Q
-    tile, one int8 logits row of the padded KV block per query row, one
-    sub-tile of P per row group, the row max / row sum exchange, the ring."""
+    of ``slots`` sub-tiles, computing ``out_cols`` output columns (mirrors
+    the kernel's ``make_layout``): the Q tile, one int8 logits row of the
+    padded KV block per query row, one sub-tile of P per row group, the row
+    max / row sum exchange, the ring."""
     dp = -(-d // 32) * 32
     bkp = -(-block_k // KV_SUBTILE) * KV_SUBTILE
     rows = 16 * groups
     return (rows * dp + rows * (bkp + 16) + rows * KV_SUBTILE + groups * 256
-            + slots * KV_SUBTILE * max(dp, OUT_COLS))
+            + slots * KV_SUBTILE * max(dp, out_cols))
 
 
 def attn_grid(bh: int, sq: int, d: int, block_k: int) -> tuple[int, int, int, int, int]:
@@ -74,12 +82,57 @@ def attn_grid(bh: int, sq: int, d: int, block_k: int) -> tuple[int, int, int, in
                      f"{attn_smem(1, block_k, d, 2)} bytes of shared memory")
 
 
+#: shared memory of one SM, and what the runtime keeps of it for each block
+#: beside the kernel's own (its static tables: 384 bytes)
+SM_SMEM, BLOCK_SMEM_EXTRA = 228 * 1024, 1024 + 384
+
+
+def paged_grid(bh: int, sq: int, d: int, block_k: int) -> tuple[int, ...]:
+    """(output columns a block, row groups a block, warps a row group, ring
+    slots, grid_x, grid_y) of a paged launch, block x and y as in
+    :func:`attn_grid`.  Heads wider than 64 take 128 output columns a block,
+    so that one block's logits and exponentials serve them all (the
+    encoders' launch recomputes them for each 64), with two warps a row
+    group, which split its keys and its columns (each warp's accumulator as
+    wide as the encoders' one).  A paged grid is large and its blocks walk
+    up to a whole table each, so the shape is the largest whose blocks fit
+    two to an SM (a second block hides the first's latency), the deepest
+    ring first; else the largest that fits at all."""
+    tiles = -(-sq // 16)
+    if d > OUT_COLS:
+        out, split = 2 * OUT_COLS, 2
+    else:
+        out, split = OUT_COLS, attn_grid(bh, sq, d, block_k)[1]
+    shapes = [(g, r) for g in range(min(4 // split, tiles), 0, -1)
+              for r in range(RING_SLOTS, 1, -1)]
+    for per_sm in (2, 1):
+        for groups, ring in shapes:
+            smem = attn_smem(groups, block_k, d, ring, out)
+            if smem <= SMEM_MAX and per_sm * (smem + BLOCK_SMEM_EXTRA) <= SM_SMEM:
+                return out, groups, split, ring, bh * -(-sq // (16 * groups)), -(-d // out)
+    raise ValueError(f"head_dim {d} with block_k {block_k} needs "
+                     f"{attn_smem(1, block_k, d, 2, out)} bytes of shared memory")
+
+
 @functools.cache
 def _lib():
     lib = _build.load("ita_attention")
     fn = lib.ita_attention_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
+    return fn
+
+
+#: ``ita_attention_paged_launch``'s parameters: q, k, v, luts, out, table,
+#: pos; 19 ints; the stream
+PAGED_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 19 + [ctypes.c_void_p]
+
+
+@functools.cache
+def _lib_paged():
+    fn = _build.load("ita_attention").ita_attention_paged_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = PAGED_ARGTYPES
     return fn
 
 
@@ -164,3 +217,97 @@ def ita_decode(
         block_k=block_k, kv_valid=cache_len,
     )
     return out.reshape(b, h, 1, d)
+
+
+#: the most lanes a paged launch takes: their offsets travel in the launch
+#: arguments (csrc/ita_attention.cu, MAX_LANES)
+MAX_LANES = 256
+
+
+def paged_launch_grid(b: int, heads: int, kv_heads: int, sq: int, head_dim: int,
+                      block_k: int) -> tuple[int, ...]:
+    """:func:`paged_grid` of ``b`` lanes of ``sq`` queries over ``heads``
+    query and ``kv_heads`` KV heads of ``head_dim``, in KV blocks of
+    ``block_k`` (as :func:`paged_block_k` gives it); ValueError where the
+    kernel does not take them: GQA groups not whole, ``head_dim`` or
+    ``block_k`` not a multiple of 4, more than ``MAX_LANES`` lanes, or no
+    shared-memory layout."""
+    if not 1 <= b <= MAX_LANES or kv_heads < 1 or heads % kv_heads:
+        raise ValueError(f"ita_attention_paged takes 1 to {MAX_LANES} lanes and whole GQA "
+                         f"groups, got {b} lanes of {heads}/{kv_heads} heads")
+    if head_dim < 4 or head_dim % 4 or block_k % 4:
+        raise ValueError(f"ita_attention_paged takes head_dim and block_k multiples of 4, "
+                         f"got {head_dim} and {block_k}")
+    return paged_grid(b * heads, sq, head_dim, block_k)
+
+
+def ita_attention_paged(
+    q_m: torch.Tensor,  # int8 [B, S, H*D], heads merged
+    k_pool: torch.Tensor,  # int8 [P+1, Hkv, block_size, D]
+    v_pool: torch.Tensor,  # int8 [P+1, Hkv, block_size, D]
+    pos,  # host data: the lanes' offsets, a scalar or [B]
+    table,  # int32 [B, cols], or [cols] / [1, cols] for every lane
+    *,
+    heads: int,
+    kv_heads: int,
+    head_dim: int,
+    s_q: float,
+    s_k: float,
+    s_v: float,
+    s_out: float,
+    block_k: int = 512,
+) -> torch.Tensor:
+    """Fused int8 attention of a decoder's paged KV pool.  Returns int8
+    [B, S, H*D].
+
+    Key j of lane b is ``pool[table[b, j // block_size], :, j % block_size]``;
+    query i of lane b sits at position ``pos_b + i`` and attends keys
+    ``[0, pos_b + i]`` below the table's width ``cols * block_size``, in KV
+    blocks of ``paged_block_k(block_k, cols * block_size)``.  Bit-exact with
+    the gathered cache under ``attention_decode_i8`` at that block
+    (:func:`ita_attention_paged_ref`, which CPU tensors run).  The offsets
+    reach the kernel as a launch argument and the table is read where it
+    lies (on the pool's device, it is not copied): nothing here waits for
+    the device.  A call the kernel cannot take raises."""
+    if q_m.device.type == "cpu":
+        return ita_attention_paged_ref(q_m, k_pool, v_pool, pos, table, heads=heads,
+                                       kv_heads=kv_heads, head_dim=head_dim, s_q=s_q, s_k=s_k,
+                                       s_v=s_v, s_out=s_out, block_k=block_k)
+    if not q_m.is_cuda:
+        raise RuntimeError(f"ita_attention_paged runs on cuda or cpu tensors, got {q_m.device}")
+    b, sq, _ = q_m.shape
+    d, bs = head_dim, k_pool.shape[2]
+    tab = torch.as_tensor(table).to(device=q_m.device, dtype=torch.int32)
+    tab = (tab[None] if tab.dim() == 1 else tab).contiguous()
+    if tab.shape[0] not in (1, b):
+        raise ValueError(f"a block table of {tab.shape[0]} rows for {b} lanes")
+    cols = tab.shape[1]
+    bk = paged_block_k(block_k, cols * bs)
+    grid = paged_launch_grid(b, heads, kv_heads, sq, d, bk)
+    if q_m.shape[2] != heads * d or tuple(k_pool.shape[1:]) != (kv_heads, bs, d):
+        raise ValueError(f"q {tuple(q_m.shape)} and pool {tuple(k_pool.shape)} do not hold "
+                         f"{heads}/{kv_heads} heads of {d}")
+    if any(t.dtype != torch.int8 or t.device != q_m.device for t in (q_m, k_pool, v_pool)):
+        raise TypeError("ita_attention_paged takes int8 q and pools on one device")
+    if k_pool.shape != v_pool.shape or not all(
+            t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (k_pool, v_pool)):
+        raise ValueError("the K and V pools must be alike, contiguous and 16-byte aligned")
+    p = MhaQParams.make_flash(s_q, s_k, s_v, s_out, d)
+    dev = q_m.device
+    q = _build.as_kernel_arg(q_m)
+    lanes = lane_offsets(pos, b)
+    out = torch.empty_like(q)
+    with torch.cuda.device(dev):
+        rc = _lib_paged()(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _luts(dev).data_ptr(),
+            out.data_ptr(), tab.data_ptr(), lanes.ctypes.data, b, heads, kv_heads, sq, d, cols,
+            bs, cols if tab.shape[0] > 1 else 0, int(p.logit_mult), int(p.logit_shift),
+            int(p.out_mult), int(p.out_shift), bk, *grid,
+            _build.stream_of(out),
+        )
+    _build.check(rc, "ita_attention_paged")
+    ita_attention_paged.launches += 1
+    return out
+
+
+ita_attention_paged.launches = 0  # kernel launches since the last reset
